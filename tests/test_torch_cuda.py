@@ -1,0 +1,119 @@
+"""The port's CUDA kernels on a card, against their plain versions.
+
+Every test here carries the `gpu` marker and skips without a CUDA device.
+This file imports neither JAX nor the reference, so it runs on a machine
+that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Nearest voting is bitwise on dsi, conf and zf; bilinear dsi within
+BILINEAR_ATOL/RTOL (float atomics reorder the sum of fractional weights);
+the depth max/argmax kernel is bitwise on any stored DSI.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.camera import CameraModel
+from repro_torch.core.dsi import DSIConfig
+from repro_torch.core.pipeline import EMVSOptions, run_emvs
+from repro_torch.events.aggregation import aggregate
+from repro_torch.events.simulator import (
+    SceneConfig,
+    make_scene,
+    make_trajectory,
+    simulate_events,
+)
+from repro_torch.kernels import cuda
+from repro_torch.kernels.backproject_vote import ops
+from repro_torch.kernels.local_max.ops import depth_argmax
+
+BILINEAR_ATOL, BILINEAR_RTOL = 1e-4, 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _inputs(seed: int, s: int, f: int, e: int, nz: int, w: int, h: int):
+    rng = np.random.default_rng(seed)
+    xy0 = rng.uniform((-8, -8), (w + 8, h + 8), (s, f, e, 2)).astype(np.float32)
+    valid = (rng.random((s, f, e)) > 0.2).astype(np.float32)
+    phi = np.concatenate([rng.uniform(0.7, 1.3, (s, f, nz, 1)),
+                          rng.uniform(-6, 6, (s, f, nz, 2))], -1).astype(np.float32)
+    return [torch.from_numpy(a) for a in (xy0, valid, phi)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cuda_kernels_vs_plain(dev, mode, quantized):
+    """Both kernels, one launch each, at the DAVIS240 width."""
+    xy0, valid, phi = _inputs(17, 2, 4, 1024, 32, 240, 180)
+    kw = dict(cx=132.0, cy=110.0, w=240, h=180, mode=mode, quantized=quantized)
+    n0 = dict(cuda.launch_counts)
+    dsi, conf, zf = ops.backproject_vote_detect(xy0.to(dev), valid.to(dev), phi.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["backproject_vote"] == n0.get("backproject_vote", 0) + 1
+    assert cuda.launch_counts["depth_argmax"] == n0.get("depth_argmax", 0) + 1
+    dsi_p, conf_p, zf_p = ops.backproject_vote_detect(xy0, valid, phi, **kw)
+    if mode == "nearest":
+        assert torch.equal(dsi.cpu(), dsi_p)
+        assert torch.equal(conf.cpu(), conf_p)
+        assert torch.equal(zf.cpu(), zf_p)
+    else:
+        torch.testing.assert_close(dsi.cpu().float(), dsi_p.float(),
+                                   atol=BILINEAR_ATOL, rtol=BILINEAR_RTOL)
+    conf_r, zf_r = depth_argmax(dsi.cpu())
+    assert torch.equal(conf.cpu(), conf_r)
+    assert torch.equal(zf.cpu(), zf_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int32])
+def test_cuda_depth_argmax_dtypes(dev, dtype):
+    g = torch.Generator().manual_seed(3)
+    dsi = torch.randint(0, 40, (3, 16, 20, 30), generator=g).to(dtype)
+    conf, zf = depth_argmax(dsi.to(dev))
+    conf_r, zf_r = depth_argmax(dsi)
+    assert torch.equal(conf.cpu(), conf_r)
+    assert torch.equal(zf.cpu(), zf_r)
+
+
+@pytest.mark.gpu
+def test_cuda_plane_too_large_raises(dev):
+    xy0, valid, phi = (t.to(dev) for t in _inputs(1, 1, 1, 8, 2, 400, 300))
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.backproject_vote_detect(xy0, valid, phi, cx=200.0, cy=150.0, w=400, h=300)
+
+
+@pytest.mark.gpu
+def test_cuda_run_emvs_kernel_matches_scatter(dev):
+    """A small end-to-end run on the card: the kernel formulation launches
+    both kernels and agrees bitwise with the plain scatter formulation."""
+    cam = CameraModel()
+    scene = make_scene(SceneConfig(points_per_plane=150))
+    traj = make_trajectory("simulation_3planes", 24, device=dev)
+    frames = aggregate(cam, simulate_events(cam, scene, traj, device=dev), traj,
+                       events_per_frame=1024, pose_extrapolation="clamp", device=dev)
+    cfg = DSIConfig.for_camera(cam, num_planes=32, z_min=0.6, z_max=4.5)
+    for quantized in (False, True):
+        opts = EMVSOptions(formulation="kernel", quantized=quantized,
+                           keyframe_dist_frac=0.05)
+        cuda.launch_counts.clear()
+        got = run_emvs(cam, cfg, frames, opts, device=dev)
+        assert cuda.launch_counts["backproject_vote"] > 0
+        assert cuda.launch_counts["depth_argmax"] > 0
+        ref = run_emvs(cam, cfg, frames,
+                       EMVSOptions(formulation="scatter", quantized=quantized,
+                                   keyframe_dist_frac=0.05), device=dev)
+        assert len(got.segments) == len(ref.segments) >= 1
+        for a, b in zip(got.segments, ref.segments):
+            assert torch.equal(a.dsi.float(), b.dsi.float())
+            assert torch.equal(a.depth_map.depth, b.depth_map.depth)
+            assert torch.equal(a.depth_map.mask, b.depth_map.mask)
