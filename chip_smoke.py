@@ -7,13 +7,13 @@ Phases, each asserting, none caught:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. builds every CUDA kernel from `src/repro_torch/csrc` (one nvcc per
      source, all started together);
-  3. holds each kernel against its plain PyTorch version on the card:
-     random nearest/bilinear, float/quantized cases and the boundary grid
-     (events on w-1/h-1, half-integer coords, fully padded frames,
+  3. holds the EMVS kernels against their plain PyTorch versions on the
+     card: random nearest/bilinear, float/quantized cases and the boundary
+     grid (events on w-1/h-1, half-integer coords, fully padded frames,
      non-finite coords). Nearest is bitwise on dsi, conf and zf; bilinear
      dsi within BILINEAR_ATOL/RTOL (f32 atomics reorder the sum of
      fractional weights); the depth max/argmax kernel is bitwise on any DSI;
-  4. drives the main path at the paper's width: the simulator's
+  4. drives the EMVS main path at the paper's width: the simulator's
      simulation_3planes scene (SceneConfig defaults), 96 trajectory steps,
      `aggregate` at 1024 events per frame, `run_emvs` on the 240x180
      DAVIS240 camera with 128 planes and the fused-kernel formulation
@@ -21,13 +21,36 @@ Phases, each asserting, none caught:
      and read just after; both kernels must have launched. The same run
      with the plain scatter formulation must agree bitwise on dsi, depth
      and mask, and AbsRel against the ground truth must stay below 0.25;
-  5. times each kernel and its plain version at the main path's shapes
-     (CUDA events, warm, median) and the run_emvs wall time, and profiles
-     one warm run_emvs (device-kernel time, busy share, top device ops).
+  5. times each EMVS kernel and its plain version at the main path's
+     shapes (CUDA events, warm, median) and the run_emvs wall time, and
+     profiles one warm run_emvs (device-kernel time, busy share, top ops);
+  6. holds the flash-attention kernel against its plain version on the
+     card: (1, 32, S, 128) queries over (1, 8, S, 128) keys for S in 32,
+     128, 512, 2048, Sq < Skv (128 over 512), MHA, causal and not, bf16
+     and float32, within the reference's tolerances (FLASH_TOL);
+  7. drives the LM serving path at full width: qwen3-8b (36 layers, d 4096,
+     32/8 heads, vocab 151,936) with random bf16 weights from
+     torch.Generator seed 0, an Engine of 4 slots, max_len 1024 and
+     prefill buckets 32/128/512, serving 8 requests of 5-500 prompt tokens
+     (numpy seed 0, every bucket used) for 16 new tokens each. Launch
+     counts are zeroed just before and read just after: flash_attention
+     must launch 36 times per request. Every request must finish with 16
+     tokens and every sampled logit row must be finite. One request's
+     prefill logits with the kernel are held against prefill with the
+     plain attention, at relative L2 <= PREFILL_REL_L2 with the bf16
+     weights and with a float32 copy of them; in bf16 both are also set
+     beside prefill with float64 attention (the rounding floor);
+  8. times the flash-attention kernel, its plain version and PyTorch's
+     scaled_dot_product_attention (the yardstick, never called by the
+     port) at S = 32, 128, 512; prefill per bucket; a warm decode step
+     of the 4 slots against the weight-streaming bound; tokens/s of the
+     serving run; and profiles one prefill of the largest bucket and
+     one decode step.
 
-The line before the last is one JSON object per the kernels; the last line
-is `{"ok": true, "device": {...}}`. Exits non-zero, printing neither, when
-there is no CUDA device or the repository's `src/` is not beside it.
+At the end it prints, each on a line of its own: one JSON object for the
+kernels (all three), the card's name and power limit, and last
+`{"ok": true, "device": {...}}`. Exits non-zero, printing none of these,
+when there is no CUDA device or the repository's `src/` is not beside it.
 """
 from __future__ import annotations
 
@@ -50,6 +73,19 @@ BILINEAR_ATOL, BILINEAR_RTOL = 1e-4, 1e-5
 B1_OPS_PER_PROJECTION = 9
 # per (pixel, plane) in the depth max/argmax: a compare and a select
 B2_OPS_PER_VOXEL = 2
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+# the reference's flash-attention tolerances (tests/test_kernels.py)
+FLASH_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 2e-5}
+# prefill logits, kernel vs plain attention, relative L2. In float32 the
+# two differ by summation order only (about 1e-5 at qwen3-8b). In bf16
+# each layer's attention output can round the other way in its last bit
+# and 36 layers of random weights amplify that to about 0.04; the script
+# prints how far the plain version itself lands from float64 attention.
+PREFILL_REL_L2 = {"torch.float32": 1e-3, "torch.bfloat16": 0.1}
+LM_ARCH = "qwen3-8b"
+LM_SLOTS, LM_MAX_LEN, LM_BUCKETS = 4, 1024, (32, 128, 512)
+LM_REQUESTS, LM_NEW_TOKENS = 8, 16
+FLASH_TIMED_S = (32, 128, 512)
 
 
 def log(msg: str) -> None:
@@ -82,11 +118,11 @@ def cuda_ms(fn, reps: int = 5, inner: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_breakdown(fn, top: int = 8) -> tuple[float, float, list[tuple[str, float, int]]]:
-    """Profile one call of `fn`: (wall ms, summed device-kernel ms, the
-    `top` device kernels by time as (name, ms, calls)). Only the kernel
-    events count: the CPU-side operator rows carry their kernels' time
-    again."""
+def log_breakdown(card: str, what: str, fn, top: int = 8) -> None:
+    """Profile one call of `fn` and print its wall ms, the summed ms and
+    number of its device kernels, the busy share and the `top` device
+    kernels by time. Only the kernel events count: the CPU-side operator
+    rows carry their kernels' time again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -96,7 +132,7 @@ def device_breakdown(fn, top: int = 8) -> tuple[float, float, list[tuple[str, fl
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = 1e3 * (time.perf_counter() - t0)
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -107,7 +143,12 @@ def device_breakdown(fn, top: int = 8) -> tuple[float, float, list[tuple[str, fl
         if dev_us > 0:
             rows.append((ev.key, dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
-    return 1e3 * wall, sum(r[1] for r in rows), rows[:top]
+    busy = sum(r[1] for r in rows)
+    log(f"[{card}] {what} under torch.profiler: wall {wall:.2f} ms, device kernels "
+        f"{busy:.2f} ms in {sum(r[2] for r in rows)} launches (busy share "
+        f"{busy / wall:.3f}); top device ops:")
+    for name, ms, calls in rows[:top]:
+        log(f"  {ms:9.3f} ms  {calls:5d} calls  {name[:90]}")
 
 
 def assert_equal(a, b, what: str) -> None:
@@ -204,6 +245,260 @@ def kernel_cases(cam, dev) -> None:
         what = f"non-finite phi nearest quantized={quantized}"
         compare_b1_b2(*args, cam=cam, mode="nearest", quantized=quantized, what=what)
         log(f"  {what}: ok")
+
+
+def flash_cases(dev) -> float:
+    """Phase 6: the flash-attention kernel against its plain version.
+
+    Returns the max abs error over the bf16 causal GQA cases at the
+    serving path's prefill shapes."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    d = 128
+    cases = [(32, 8, s, s, True) for s in (32, 128, 512, 2048)]
+    cases += [(32, 8, 128, 512, True), (32, 8, 512, 512, False),
+              (8, 8, 256, 256, True), (8, 8, 256, 256, False)]
+    main_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = FLASH_TOL[str(dtype)]
+        for hq, hkv, sq, skv, causal in cases:
+            q = torch.randn((1, hq, sq, d), generator=g, device=dev).to(dtype)
+            k = torch.randn((1, hkv, skv, d), generator=g, device=dev).to(dtype)
+            v = torch.randn((1, hkv, skv, d), generator=g, device=dev).to(dtype)
+            got = flash_attention(q, k, v, causal=causal)
+            want = attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            what = (f"flash {str(dtype)[6:]} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} "
+                    f"causal={causal}")
+            assert got.dtype == dtype and bool(torch.isfinite(got).all()), what
+            assert err <= tol, f"{what}: max abs err {err} > {tol}"
+            log(f"  {what}: ok (max abs err {err:.3g}, tol {tol:g})")
+            if dtype == torch.bfloat16 and causal and hkv == 8 and sq == skv <= 512:
+                main_err = max(main_err, err)
+    return main_err
+
+
+def lm_prompts(vocab: int) -> list:
+    """8 prompts of 5-500 tokens, numpy seed 0: 3, 3 and 2 in the three
+    prefill buckets, in shuffled order."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = np.concatenate([rng.integers(5, 33, 3), rng.integers(33, 129, 3),
+                           rng.integers(129, 501, 2)])
+    rng.shuffle(lens)
+    return [rng.integers(1, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensors(v)]
+    return [tree]
+
+
+def serve_phase(dev, card: str) -> dict:
+    """Phase 7: qwen3-8b served at full width through the Engine."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, EngineConfig, Request
+
+    class CheckedEngine(Engine):
+        """The port's Engine, asserting every logit row it samples is finite
+        and timing admission (prefill + splice) apart from decode."""
+
+        admit_s = 0.0
+
+        def _admit(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._admit()
+            torch.cuda.synchronize()
+            self.admit_s += time.perf_counter() - t0
+
+        def _sample_host(self, logits):
+            assert np.isfinite(logits).all(), "non-finite logits"
+            return super()._sample_host(logits)
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    log(f"{LM_ARCH}: {M.param_count(params) / 1e9:.3f} B parameters, "
+        f"{weight_bytes / 1e9:.2f} GB, drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ecfg = EngineConfig(slots=LM_SLOTS, max_len=LM_MAX_LEN, prefill_buckets=LM_BUCKETS)
+
+    # warm-up (cuBLAS handles, allocator): one short request per bucket
+    warm = CheckedEngine(cfg, params, ecfg, eos_id=-1)
+    for b in LM_BUCKETS:
+        warm.submit(Request(rid=-1, prompt=np.ones(b, np.int32), max_new_tokens=2))
+    warm.run_until_done()
+    del warm
+
+    prompts = lm_prompts(cfg.vocab_size)
+    eng = CheckedEngine(cfg, params, ecfg, eos_id=-1)
+    assert {eng.bucket_for(len(p)) for p in prompts} == set(LM_BUCKETS)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda.launch_counts.clear()
+    t0 = time.perf_counter()
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.launch_counts)
+    n_tokens = sum(len(r.generated) for r in reqs)
+    log(f"serve: {len(reqs)} requests (prompts {sorted(len(p) for p in prompts)}) "
+        f"-> {n_tokens} tokens in {eng.step_count} engine steps, "
+        f"{1e3 * wall:.1f} ms, launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    for r in reqs:
+        assert r.done and len(r.generated) == LM_NEW_TOKENS, (r.rid, r.generated)
+    want = cfg.n_layers * len(reqs)
+    assert launches.get("flash_attention", 0) == want, (launches, want)
+    decode_steps = eng.step_count
+    log(f"[{card}] serve {LM_ARCH} bf16: {n_tokens / wall:.1f} tokens/s over the run "
+        f"({n_tokens} tokens incl. {len(reqs)} from prefill, {1e3 * wall:.1f} ms: "
+        f"admission {1e3 * eng.admit_s:.1f} ms for {len(reqs)} prefills, decode "
+        f"{1e3 * (wall - eng.admit_s):.1f} ms for {decode_steps} steps)")
+
+    # one request's prefill logits: the kernel against the plain attention,
+    # with the bf16 weights and with a float32 copy of them
+    p = max(prompts, key=len)
+    toks = torch.zeros((1, eng.bucket_for(len(p))), dtype=torch.long, device=dev)
+    toks[0, :len(p)] = torch.as_tensor(p, device=dev)
+
+    def plain(q, k, v, *, causal, block_q, block_k):
+        return attention_ref(q, k, v, causal=causal)
+
+    def float64(q, k, v, *, causal, block_q, block_k):
+        """The plain version's arithmetic in float64, rounded once to q's
+        dtype: how far an exact attention would land from the plain one."""
+        g = q.shape[1] // k.shape[1]
+        kd, vd = (t.double().repeat_interleave(g, 1) for t in (k, v))
+        s = q.double() @ kd.transpose(-1, -2) / q.shape[-1] ** 0.5
+        sq, skv = q.shape[2], k.shape[2]
+        if causal:
+            qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+            s = s.masked_fill(torch.arange(skv, device=q.device)[None, :] > qpos,
+                              float("-inf"))
+        return (torch.softmax(s, dim=-1) @ vd).to(q.dtype)
+
+    def rel_l2(a, b) -> float:
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    def as_float32(tree):
+        if isinstance(tree, dict):
+            return {k: as_float32(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [as_float32(v) for v in tree]
+        return tree.to(torch.float32)
+
+    for make in (lambda: params, lambda: as_float32(params)):
+        weights = make()
+        dtype = str(weights["lm_head"].dtype)
+        lk, _ = M.prefill(weights, toks, cfg, LM_MAX_LEN, logit_index=len(p) - 1)
+        with mock.patch.object(attention, "flash_attention", plain):
+            lp, _ = M.prefill(weights, toks, cfg, LM_MAX_LEN, logit_index=len(p) - 1)
+        assert bool(torch.isfinite(lk).all()) and lk.shape == (1, 1, cfg.vocab_size)
+        rel = rel_l2(lk, lp)
+        log(f"prefill logits, {dtype[6:]} weights ({len(p)} tokens, bucket "
+            f"{toks.shape[1]}): kernel vs plain attention relative L2 {rel:.3g}, "
+            f"max abs {float((lk - lp).abs().max()):.3g}, limit {PREFILL_REL_L2[dtype]:g}")
+        assert rel <= PREFILL_REL_L2[dtype], f"prefill logits relative L2 {rel}"
+        if dtype == "torch.bfloat16":
+            with mock.patch.object(attention, "flash_attention", float64):
+                l64, _ = M.prefill(weights, toks, cfg, LM_MAX_LEN,
+                                   logit_index=len(p) - 1)
+            log(f"  rounding floor: against float64 attention the kernel's logits "
+                f"are at relative L2 {rel_l2(lk, l64):.3g}, the plain version's at "
+                f"{rel_l2(lp, l64):.3g}")
+            del l64
+        del weights, lk, lp
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "params": params, "launches": launches,
+            "weight_bytes": weight_bytes}
+
+
+def flash_bound(s: int) -> tuple[float, str]:
+    """Least ms for causal (1, 32, s, 128) over (1, 8, s, 128) in bf16:
+    q, k, v read once and o written once, against the causal FLOPs of
+    both products on the tensor cores."""
+    hq, hkv, d = 32, 8, 128
+    nbytes = 2 * (2 * hq * s * d + 2 * hkv * s * d)
+    flops = 4 * hq * d * s * (s + 1) // 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lm_timings(dev, card: str, lm: dict) -> list[dict]:
+    """Phase 8: B3 beside its plain version and SDPA; prefill per bucket;
+    a warm decode step; a profile of one decode step."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import model as M
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for s in FLASH_TIMED_S:
+        q = torch.randn((1, 32, s, 128), generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn((1, 8, s, 128), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((1, 8, s, 128), generator=g, device=dev).to(torch.bfloat16)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), reps=7, inner=10)
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), reps=7, inner=10)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=7, inner=10)
+        bound_ms, bound_by = flash_bound(s)
+        rows.append({"S": s, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": sdpa_ms})
+        log(f"[{card}] flash_attention bf16 causal (1, 32, {s}, 128) over (1, 8, {s}, "
+            f"128): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {sdpa_ms:.4f} "
+            f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+
+    cfg, params = lm["cfg"], lm["params"]
+    for b in LM_BUCKETS:
+        toks = torch.randint(1, cfg.vocab_size, (1, b), generator=g, device=dev)
+        ms = cuda_ms(lambda: M.prefill(params, toks, cfg, LM_MAX_LEN), reps=3, inner=2)
+        log(f"[{card}] prefill {LM_ARCH} bucket {b}: {ms:.2f} ms")
+    log_breakdown(card, f"prefill bucket {LM_BUCKETS[-1]}",
+                  lambda: M.prefill(params, toks, cfg, LM_MAX_LEN), top=10)
+
+    state = M.init_decode_state(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+    tokens = torch.randint(1, cfg.vocab_size, (LM_SLOTS, 1), generator=g, device=dev)
+    lengths = torch.tensor([37, 120, 480, 300][:LM_SLOTS], device=dev)
+
+    def step():
+        return M.decode_step_batched(params, state, tokens, lengths, cfg)
+
+    ms = cuda_ms(step, reps=5, inner=3)
+    bound = 1e3 * lm["weight_bytes"] / HBM_BYTES_PER_S
+    log(f"[{card}] decode step {LM_ARCH} {LM_SLOTS} slots: {ms:.2f} ms warm, bound "
+        f"{bound:.2f} ms ({lm['weight_bytes'] / 1e9:.2f} GB of weights at 3.35 TB/s)")
+    log_breakdown(card, "decode step", step, top=10)
+    return rows
 
 
 def main() -> int:
@@ -372,7 +667,6 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    prof_wall, busy, top_ops = device_breakdown(lambda: run_emvs(cam, dsi_cfg, frames, opts))
 
     log(f"[{card}] backproject_vote at {shape_note}: kernel {b1_ms:.4f} ms, "
         f"plain {b1_plain_ms:.2f} ms, bound {b1_bound:.4f} ms ({b1_by})")
@@ -382,10 +676,17 @@ def main() -> int:
         f"{1e3 * wall:.1f} ms median of {len(walls)} ({len(result.segments)} "
         f"segments, {frames.xy.shape[0]} frames); whole script "
         f"{time.perf_counter() - t_start:.1f} s")
-    log(f"[{card}] run_emvs under torch.profiler: wall {prof_wall:.1f} ms, device "
-        f"kernels {busy:.2f} ms (busy share {busy / prof_wall:.3f}); top device ops:")
-    for name, ms, calls in top_ops:
-        log(f"  {ms:9.3f} ms  {calls:5d} calls  {name[:90]}")
+    log_breakdown(card, "run_emvs", lambda: run_emvs(cam, dsi_cfg, frames, opts))
+
+    # 6. the flash-attention kernel vs its plain version
+    log("flash attention kernel vs plain:")
+    b3_err = flash_cases(dev)
+
+    # 7. the LM serving path at full width; 8. its timings
+    lm = serve_phase(dev, card)
+    b3_rows = lm_timings(dev, card, lm)
+    b3 = b3_rows[-1]  # the largest prefill bucket
+    log(f"whole script {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {"name": "backproject_vote", "route": "cuda",
@@ -400,6 +701,14 @@ def main() -> int:
          "launches": launches["depth_argmax"], "max_abs_err": err2,
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
          "bound_by": b2_by, "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
+         "launches": lm["launches"]["flash_attention"], "max_abs_err": b3_err,
+         "ms": b3["ms"], "plain_ms": b3["plain_ms"], "bound_ms": b3["bound_ms"],
+         "bound_by": b3["bound_by"], "library_ms": b3["library_ms"],
+         "shape": "bf16 causal (1, 32, S, 128) over (1, 8, S, 128), S = 512",
+         "per_shape": b3_rows},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

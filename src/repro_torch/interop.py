@@ -1,10 +1,11 @@
 """Carry the reference's state into the port's types.
 
-The reference has no learned weights: its "parameters" are its configs and
-the arrays it stages. These functions take plain dicts (for example
-`dataclasses.asdict` of a reference config) and numpy arrays, never objects
-of the reference package, and return this package's types, so the same
-inputs can be fed to both implementations.
+The EMVS datapath has no learned weights: its "parameters" are its configs
+and the arrays it stages. The LM substrate has random weights, carried
+across by `lm_params_from_numpy`. These functions take plain dicts (for
+example `dataclasses.asdict` of a reference config) and numpy arrays,
+never objects of the reference package, and return this package's types,
+so the same inputs can be fed to both implementations.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.configs import ArchConfig
 from repro_torch.core.camera import CameraModel
 from repro_torch.core.dsi import DSIConfig
 from repro_torch.core.geometry import SE3
@@ -80,3 +82,47 @@ def segment_batch_from_numpy(xy, valid, frame_valid, poses_R, poses_t, ref_R,
     f32 = torch.float32
     return SegmentBatch(*(_tensor(a, f32, dev) for a in
                           (xy, valid, frame_valid, poses_R, poses_t, ref_R, ref_t)))
+
+
+# Leaves the reference keeps in float32 whatever the model dtype (norm scales).
+_FLOAT32_LEAVES = ("scale", "q_norm", "k_norm")
+
+
+def _leaf_tensor(a, name: str, dtype, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: torch cannot take it directly
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # exact
+    else:
+        t = torch.from_numpy(np.array(a))  # a writable copy
+    if dtype is not None and t.is_floating_point() and name not in _FLOAT32_LEAVES:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _convert(tree, dtype, device, index=None, name=""):
+    if isinstance(tree, Mapping):
+        return {k: _convert(v, dtype, device, index, k) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return _leaf_tensor(a if index is None else a[index], name, dtype, device)
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig, *, device=None,
+                         dtype=None) -> dict:
+    """The port's LM parameters from the reference's parameter tree, as
+    nested dicts of numpy arrays (`jax.tree.map(np.asarray, params)`).
+
+    The reference stacks each pattern position's layers on a leading
+    super-block axis inside a `blocks` tuple; the port keeps one dict per
+    layer, in order. bfloat16 leaves go through float32, which holds them
+    exactly. `dtype`, when given, casts every floating leaf except the
+    norm scales, which the reference keeps in float32 at any model dtype.
+    """
+    dev = resolve_device(device)
+    out = {k: _convert(v, dtype, dev, name=k) for k, v in tree.items() if k != "blocks"}
+    blocks = tree["blocks"]
+    pattern = cfg.pattern()
+    if len(blocks) != len(pattern):
+        raise ValueError(f"{len(blocks)} block groups for pattern {pattern}")
+    out["blocks"] = [_convert(blocks[i], dtype, dev, index=sb)
+                     for sb in range(cfg.n_superblocks()) for i in range(len(pattern))]
+    return out

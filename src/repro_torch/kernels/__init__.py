@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for the EMVS hot spots (sm_90a).
+"""Hand-written CUDA kernels (sm_90a): the EMVS hot spots and LM attention.
 
 Each kernel package ships three files, as the reference's do:
   kernel.py — the ctypes launcher of the CUDA source in `csrc/`
@@ -11,4 +11,7 @@ Kernels:
                      (plane, segment) with a shared-memory accumulator.
   local_max        — depth max/argmax + parabola refinement, one thread
                      per pixel.
+  flash_attention  — causal/GQA softmax attention with an online softmax,
+                     one CTA per (query tile, batch*head) looping over
+                     KV tiles.
 """

@@ -8,7 +8,10 @@ that has only PyTorch:
 
 Nearest voting is bitwise on dsi, conf and zf; bilinear dsi within
 BILINEAR_ATOL/RTOL (float atomics reorder the sum of fractional weights);
-the depth max/argmax kernel is bitwise on any stored DSI.
+the depth max/argmax kernel is bitwise on any stored DSI. Flash attention
+is held to its plain version within the reference's own tolerances
+(`tests/test_kernels.py`): 2e-5 in float32, 2e-2 in bfloat16 (the sums
+run in another order; bf16 outputs round at 2^-8 relative).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.camera import CameraModel
 from repro_torch.core.dsi import DSIConfig
 from repro_torch.core.pipeline import EMVSOptions, run_emvs
@@ -28,7 +32,11 @@ from repro_torch.events.simulator import (
 )
 from repro_torch.kernels import cuda
 from repro_torch.kernels.backproject_vote import ops
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.local_max.ops import depth_argmax
+from repro_torch.models import model as M
+from repro_torch.serving.engine import Engine, EngineConfig, Request
 
 BILINEAR_ATOL, BILINEAR_RTOL = 1e-4, 1e-5
 
@@ -117,3 +125,75 @@ def test_cuda_run_emvs_kernel_matches_scatter(dev):
             assert torch.equal(a.dsi.float(), b.dsi.float())
             assert torch.equal(a.depth_map.depth, b.depth_map.depth)
             assert torch.equal(a.depth_map.mask, b.depth_map.mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", [
+    (1, 32, 8, 128, 128, 128),  # the serving path's heads, GQA 4:1
+    (2, 4, 2, 128, 128, 16),  # GQA 2:1, narrow heads
+    (1, 8, 2, 64, 256, 32),  # Sq < Skv, GQA 4:1
+    (2, 3, 3, 100, 100, 64),  # MHA, ragged tiles
+    (1, 2, 1, 40, 72, 256),  # widest heads, ragged, Sq < Skv
+    (1, 2, 2, 8, 8, 8),  # narrowest heads, one partial tile
+])
+def test_cuda_flash_attention_vs_plain(dev, dtype, causal, B, Hq, Hkv, Sq, Skv, D):
+    g = torch.Generator().manual_seed(B + Hq + Sq + D)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype) for shape in
+               ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+    n0 = cuda.launch_counts["flash_attention"]
+    got = flash_attention(q.to(dev), k.to(dev), v.to(dev), causal=causal,
+                          block_q=Sq, block_k=Skv)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["flash_attention"] == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q.to(dev), k.to(dev), v.to(dev), causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_refuses(dev):
+    q = torch.zeros((1, 2, 16, 12), device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 16, 16), device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q, q.half(), q.half())
+    with pytest.raises(ValueError, match="multiples of blocks"):
+        flash_attention(torch.zeros((1, 2, 200, 16), device=dev), q, q)
+
+
+@pytest.mark.gpu
+def test_cuda_engine_reduced_matches_cpu(dev):
+    """The reduced qwen3-8b served on the card in float32 weights: every
+    prefill layer launches the kernel, and the greedy tokens equal the
+    CPU engine's (plain attention)."""
+    cfg = get_config("qwen3-8b").reduced()
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           dtype=torch.float32, device="cpu")
+    params_dev = _to(params, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=p).astype(np.int32)
+               for p in (5, 9, 14, 7, 30)]
+    ecfg = EngineConfig(slots=2, max_len=64, prefill_buckets=(16, 32))
+    out = []
+    for p in (params, params_dev):
+        eng = Engine(cfg, p, ecfg, eos_id=-1)
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=6) for i, pr in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        cuda.launch_counts.clear()
+        eng.run_until_done(1000)
+        out.append([r.generated for r in reqs])
+    assert cuda.launch_counts["flash_attention"] == cfg.n_layers * len(prompts)
+    assert out[0] == out[1]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

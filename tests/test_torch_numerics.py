@@ -102,6 +102,27 @@ def test_depth_planes_bitwise(z_min, z_max, num):
     _same(ref, tgeo.depth_planes(z_min, z_max, num))
 
 
+def test_depth_planes_past_256_within_two_ulps():
+    """ROADMAP C3: at 512 planes XLA:CPU compiles the fused linspace
+    another way. Of the 512 inverse depths 108 differ from the reference's
+    jitted ones, each by 1 ulp; the reciprocal turns that into 96 planes
+    that differ, by at most 2 ulps. (The reference's eager planes differ
+    from its jitted ones too: 6 planes, by up to 2 ulps.)"""
+    z_min, z_max, num = 0.6, 4.5, 512
+
+    def ulps(a, b) -> np.ndarray:
+        a = np.asarray(a).view(np.int32).astype(np.int64)
+        return np.abs(a - b.numpy().view(np.int32).astype(np.int64))
+
+    inv_ref = jax.jit(lambda: jnp.linspace(1.0 / z_max, 1.0 / z_min, num,
+                                           dtype=jnp.float32))()
+    inv = ulps(inv_ref, tgeo._linspace(1.0 / z_max, 1.0 / z_min, num))
+    assert int((inv != 0).sum()) == 108 and int(inv.max()) == 1
+    planes = ulps(jax.jit(lambda: jgeo.depth_planes(z_min, z_max, num))(),
+                  tgeo.depth_planes(z_min, z_max, num))
+    assert int((planes != 0).sum()) == 96 and int(planes.max()) == 2
+
+
 def test_apply_homography_bitwise():
     rng = np.random.default_rng(2)
     H = np.eye(3, dtype=np.float32) + rng.normal(size=(6, 3, 3)).astype(np.float32) * 0.05
