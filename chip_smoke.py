@@ -6,7 +6,8 @@
 Phases, each asserting, none caught:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. builds every CUDA kernel from `src/repro_torch/csrc` (one nvcc per
-     source, all started together);
+     source, all started together) and counts the HGMMA (wgmma)
+     instructions in the flash-attention library's SASS: none fails;
   3. holds the EMVS kernels against their plain PyTorch versions on the
      card: random nearest/bilinear, float/quantized cases and the boundary
      grid (events on w-1/h-1, half-integer coords, fully padded frames,
@@ -24,28 +25,37 @@ Phases, each asserting, none caught:
   5. times each EMVS kernel and its plain version at the main path's
      shapes (CUDA events, warm, median) and the run_emvs wall time, and
      profiles one warm run_emvs (device-kernel time, busy share, top ops);
-  6. holds the flash-attention kernel against its plain version on the
-     card: (1, 32, S, 128) queries over (1, 8, S, 128) keys for S in 32,
-     128, 512, 2048, Sq < Skv (128 over 512), MHA, causal and not, bf16
-     and float32, within the reference's tolerances (FLASH_TOL);
+  6. holds the flash-attention kernels against their plain version on the
+     card, within the reference's tolerances (FLASH_TOL): the serving
+     shapes (1, 32, S, 128) over (1, 8, S, 128) for S in 32, 128, 512,
+     2048 as the model passes them ((B, S, H, D) views), head dims 16-256,
+     ragged S (100, 2047), Sq < Skv, GQA 1, 4 and 8, causal and not, bf16
+     and float32. Each case must take the route `kernel.route` names and
+     count one launch on it, and the output keeps q's layout;
   7. drives the LM serving path at full width: qwen3-8b (36 layers, d 4096,
      32/8 heads, vocab 151,936) with random bf16 weights from
      torch.Generator seed 0, an Engine of 4 slots, max_len 1024 and
      prefill buckets 32/128/512, serving 8 requests of 5-500 prompt tokens
      (numpy seed 0, every bucket used) for 16 new tokens each. Launch
      counts are zeroed just before and read just after: flash_attention
-     must launch 36 times per request. Every request must finish with 16
-     tokens and every sampled logit row must be finite. One request's
-     prefill logits with the kernel are held against prefill with the
-     plain attention, at relative L2 <= PREFILL_REL_L2 with the bf16
-     weights and with a float32 copy of them; in bf16 both are also set
-     beside prefill with float64 attention (the rounding floor);
-  8. times the flash-attention kernel, its plain version and PyTorch's
-     scaled_dot_product_attention (the yardstick, never called by the
-     port) at S = 32, 128, 512; prefill per bucket; a warm decode step
-     of the 4 slots against the weight-streaming bound; tokens/s of the
-     serving run; and profiles one prefill of the largest bucket and
-     one decode step.
+     must launch 36 times per request, all on the tensor-core route. Every
+     request must finish with 16 tokens and every sampled logit row must
+     be finite. One request's prefill logits with the kernel are held
+     against prefill with the plain attention, at relative L2 <=
+     PREFILL_REL_L2 with the bf16 weights and with a float32 copy of
+     them; in bf16 both are also set beside prefill with float64
+     attention (the rounding floor), and the kernel's distance from it
+     may be at most PREFILL_FLOOR_RATIO times the plain version's;
+  8. times each flash-attention route (bf16: tensor cores; float32: CUDA
+     cores), its plain version and PyTorch's scaled_dot_product_attention
+     (the yardstick, never called by the port) at S = 32, 128, 512, 2048
+     as device time (a CUDA graph of GRAPH_CALLS calls replayed between
+     CUDA events), beside host-inclusive eager times, with the bound and
+     the bound share; cross-checks one device time against the
+     profiler's kernel time; prefill per bucket; a warm decode step of
+     the 4 slots against the weight-streaming bound; tokens/s of the
+     serving run; and profiles one prefill of the largest bucket (at most
+     PREFILL_MAX_LAUNCHES launches) and one decode step.
 
 At the end it prints, each on a line of its own: one JSON object for the
 kernels (all three), the card's name and power limit, and last
@@ -82,10 +92,19 @@ FLASH_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 2e-5}
 # and 36 layers of random weights amplify that to about 0.04; the script
 # prints how far the plain version itself lands from float64 attention.
 PREFILL_REL_L2 = {"torch.float32": 1e-3, "torch.bfloat16": 0.1}
+# the bf16 kernel's prefill logits against float64 attention, at most this
+# multiple of the plain version's distance (the tensor-core route rounds
+# the probabilities to bf16 before their product with V)
+PREFILL_FLOOR_RATIO = 2.0
 LM_ARCH = "qwen3-8b"
 LM_SLOTS, LM_MAX_LEN, LM_BUCKETS = 4, 1024, (32, 128, 512)
 LM_REQUESTS, LM_NEW_TOKENS = 8, 16
-FLASH_TIMED_S = (32, 128, 512)
+FLASH_TIMED_S = (32, 128, 512, 2048)
+GRAPH_CALLS = 20  # calls captured in one CUDA graph for a device time
+# launches in one profiled prefill of bucket 512: 3,001 with the q/k/v and
+# output copies around the attention kernel, 144 fewer without them
+PREFILL_MAX_LAUNCHES = 2857
+CUOBJDUMP_DEFAULT = "/usr/local/cuda/bin/cuobjdump"
 
 
 def log(msg: str) -> None:
@@ -100,7 +119,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 5, inner: int = 3) -> float:
-    """Median over `reps` of the mean ms of `inner` back-to-back calls."""
+    """Median over `reps` of the mean ms of `inner` back-to-back eager calls
+    between CUDA events: host-inclusive, since a call that is faster on the
+    card than the host can enqueue it is timed at the host's pace."""
     import torch
 
     fn()
@@ -118,11 +139,84 @@ def cuda_ms(fn, reps: int = 5, inner: int = 3) -> float:
     return statistics.median(times)
 
 
-def log_breakdown(card: str, what: str, fn, top: int = 8) -> None:
+def graph_ms(fn, calls: int = GRAPH_CALLS, reps: int = 5) -> float:
+    """Device ms per call of `fn`: `calls` calls captured in one CUDA graph,
+    replayed between two CUDA events; median of `reps` replays. The host
+    enqueues one graph, so its speed drops out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def profiled_kernel_ms(fn, name_part: str, counter: str,
+                       calls: int = GRAPH_CALLS) -> tuple[float, int]:
+    """Mean device ms of the kernels whose name holds `name_part`, from
+    torch.profiler over `calls` eager calls of `fn`, and the number of
+    kernel records the profiler returned.
+
+    That `fn` launched its kernel `calls` times is checked on the launch
+    counter `counter`. The profiler's tracing may drop a kernel record now
+    and then (19 of 20 returned in one H100 run), so the mean is taken over
+    the records it returned, which must be at least one and at most
+    `calls`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import cuda
+
+    fn()
+    torch.cuda.synchronize()
+    before = cuda.launch_counts[counter]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    launched = cuda.launch_counts[counter] - before
+    assert launched == calls, f"{calls} calls launched {launched} {counter} kernels"
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and name_part in ev.key:
+            total += getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
+            count += ev.count
+    assert 1 <= count <= calls, f"the profiler returned {count} {name_part} kernels of {calls}"
+    return total / 1e3 / count, count
+
+
+def hgmma_count(lib) -> int:
+    """HGMMA instructions (wgmma) in the SASS of a built library."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or CUOBJDUMP_DEFAULT
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
+def log_breakdown(card: str, what: str, fn, top: int = 8) -> int:
     """Profile one call of `fn` and print its wall ms, the summed ms and
     number of its device kernels, the busy share and the `top` device
-    kernels by time. Only the kernel events count: the CPU-side operator
-    rows carry their kernels' time again."""
+    kernels by time; returns the number of launches. Only the kernel
+    events count: the CPU-side operator rows carry their kernels' time
+    again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -149,6 +243,7 @@ def log_breakdown(card: str, what: str, fn, top: int = 8) -> None:
         f"{busy / wall:.3f}); top device ops:")
     for name, ms, calls in rows[:top]:
         log(f"  {ms:9.3f} ms  {calls:5d} calls  {name[:90]}")
+    return sum(r[2] for r in rows)
 
 
 def assert_equal(a, b, what: str) -> None:
@@ -247,39 +342,71 @@ def kernel_cases(cam, dev) -> None:
         log(f"  {what}: ok")
 
 
-def flash_cases(dev) -> float:
-    """Phase 6: the flash-attention kernel against its plain version.
+def flash_inputs(g, dev, dtype, b, hq, hkv, sq, skv, d, layout: str):
+    """Random q, k, v as (B, H, S, D) tensors; "bshd" makes them the
+    transposed views of (B, S, H, D) tensors that the model passes."""
+    import torch
 
-    Returns the max abs error over the bf16 causal GQA cases at the
+    def make(h, s):
+        if layout == "bshd":
+            return torch.randn((b, s, h, d), generator=g, device=dev).to(dtype).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=g, device=dev).to(dtype)
+
+    return make(hq, sq), make(hkv, skv), make(hkv, skv)
+
+
+def flash_cases(dev) -> float:
+    """Phase 6: the flash-attention kernels against their plain version.
+
+    Every case asserts the route `kernel.route` names and one launch counted
+    on it. Returns the max abs error over the bf16 causal GQA cases at the
     serving path's prefill shapes."""
     import torch
 
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.flash_attention.kernel import route
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
+    bf16, f32 = torch.bfloat16, torch.float32
     g = torch.Generator(device=dev).manual_seed(0)
-    d = 128
-    cases = [(32, 8, s, s, True) for s in (32, 128, 512, 2048)]
-    cases += [(32, 8, 128, 512, True), (32, 8, 512, 512, False),
-              (8, 8, 256, 256, True), (8, 8, 256, 256, False)]
+    # (dtype, B, Hq, Hkv, Sq, Skv, D, causal, layout)
+    cases = [(dt, 1, 32, 8, s, s, 128, True, "bshd") for dt in (bf16, f32)
+             for s in (32, 128, 512, 2048)]
+    cases += [(dt, *c) for dt in (bf16, f32) for c in (
+        (1, 32, 8, 128, 512, 128, True, "bhsd"),  # Sq < Skv
+        (1, 32, 8, 512, 512, 128, False, "bshd"),
+        (1, 8, 8, 256, 256, 64, True, "bhsd"),  # GQA 1
+        (1, 8, 8, 256, 256, 64, False, "bshd"),
+        (2, 16, 2, 100, 100, 80, True, "bshd"),  # GQA 8, ragged
+        (1, 8, 2, 2047, 2047, 80, True, "bhsd"),  # ragged
+        (1, 4, 4, 40, 72, 256, True, "bshd"),  # widest heads, Sq < Skv
+        (1, 4, 4, 40, 72, 256, False, "bhsd"),
+        (2, 4, 2, 100, 300, 16, True, "bhsd"),
+        (1, 4, 2, 128, 128, 32, False, "bshd"),
+    )]
+    cases += [(bf16, 1, 2, 2, 8, 8, 8, True, "bhsd"),  # bf16 off the tensor-core route
+              (bf16, 1, 4, 2, 100, 100, 24, True, "bshd")]
     main_err = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, b, hq, hkv, sq, skv, d, causal, layout in cases:
         tol = FLASH_TOL[str(dtype)]
-        for hq, hkv, sq, skv, causal in cases:
-            q = torch.randn((1, hq, sq, d), generator=g, device=dev).to(dtype)
-            k = torch.randn((1, hkv, skv, d), generator=g, device=dev).to(dtype)
-            v = torch.randn((1, hkv, skv, d), generator=g, device=dev).to(dtype)
-            got = flash_attention(q, k, v, causal=causal)
-            want = attention_ref(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            what = (f"flash {str(dtype)[6:]} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} "
-                    f"causal={causal}")
-            assert got.dtype == dtype and bool(torch.isfinite(got).all()), what
-            assert err <= tol, f"{what}: max abs err {err} > {tol}"
-            log(f"  {what}: ok (max abs err {err:.3g}, tol {tol:g})")
-            if dtype == torch.bfloat16 and causal and hkv == 8 and sq == skv <= 512:
-                main_err = max(main_err, err)
+        q, k, v = flash_inputs(g, dev, dtype, b, hq, hkv, sq, skv, d, layout)
+        r = route(dtype, d)
+        before = dict(cuda.launch_counts)
+        got = flash_attention(q, k, v, causal=causal, block_q=sq, block_k=skv)
+        want = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        what = (f"flash {r} {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} "
+                f"D={d} causal={causal} {layout}")
+        for key, n in (("flash_attention", 1), (f"flash_attention_{r}", 1)):
+            assert cuda.launch_counts[key] == before.get(key, 0) + n, (what, key)
+        assert got.dtype == dtype and bool(torch.isfinite(got).all()), what
+        assert got.stride() == q.stride(), f"{what}: output strides {got.stride()}"
+        assert err <= tol, f"{what}: max abs err {err} > {tol}"
+        log(f"  {what}: ok (max abs err {err:.3g}, tol {tol:g})")
+        if dtype == bf16 and causal and (hq, hkv, d) == (32, 8, 128) and sq == skv <= 512:
+            main_err = max(main_err, err)
     return main_err
 
 
@@ -376,6 +503,7 @@ def serve_phase(dev, card: str) -> dict:
         assert r.done and len(r.generated) == LM_NEW_TOKENS, (r.rid, r.generated)
     want = cfg.n_layers * len(reqs)
     assert launches.get("flash_attention", 0) == want, (launches, want)
+    assert launches.get("flash_attention_tc", 0) == want, (launches, want)
     decode_steps = eng.step_count
     log(f"[{card}] serve {LM_ARCH} bf16: {n_tokens / wall:.1f} tokens/s over the run "
         f"({n_tokens} tokens incl. {len(reqs)} from prefill, {1e3 * wall:.1f} ms: "
@@ -430,9 +558,12 @@ def serve_phase(dev, card: str) -> dict:
             with mock.patch.object(attention, "flash_attention", float64):
                 l64, _ = M.prefill(weights, toks, cfg, LM_MAX_LEN,
                                    logit_index=len(p) - 1)
+            floor_k, floor_p = rel_l2(lk, l64), rel_l2(lp, l64)
             log(f"  rounding floor: against float64 attention the kernel's logits "
-                f"are at relative L2 {rel_l2(lk, l64):.3g}, the plain version's at "
-                f"{rel_l2(lp, l64):.3g}")
+                f"are at relative L2 {floor_k:.3g}, the plain version's at "
+                f"{floor_p:.3g} (ratio {floor_k / floor_p:.3g}, limit "
+                f"{PREFILL_FLOOR_RATIO:g})")
+            assert floor_k <= PREFILL_FLOOR_RATIO * floor_p, (floor_k, floor_p)
             del l64
         del weights, lk, lp
     torch.cuda.empty_cache()
@@ -440,51 +571,77 @@ def serve_phase(dev, card: str) -> dict:
             "weight_bytes": weight_bytes}
 
 
-def flash_bound(s: int) -> tuple[float, str]:
-    """Least ms for causal (1, 32, s, 128) over (1, 8, s, 128) in bf16:
-    q, k, v read once and o written once, against the causal FLOPs of
-    both products on the tensor cores."""
+def flash_bound(s: int, dtype) -> tuple[float, str]:
+    """Least ms for causal (1, 32, s, 128) over (1, 8, s, 128): q, k, v read
+    once and o written once, against the causal FLOPs of both products at
+    the card's peak for the dtype (bf16 tensor cores, float32 CUDA cores)."""
+    import torch
+
     hq, hkv, d = 32, 8, 128
-    nbytes = 2 * (2 * hq * s * d + 2 * hkv * s * d)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (2 * hq * s * d + 2 * hkv * s * d)
     flops = 4 * hq * d * s * (s + 1) // 2
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def lm_timings(dev, card: str, lm: dict) -> list[dict]:
-    """Phase 8: B3 beside its plain version and SDPA; prefill per bucket;
-    a warm decode step; a profile of one decode step."""
+    """Phase 8: each B3 route beside its plain version and SDPA (device and
+    host-inclusive times); prefill per bucket; a warm decode step; profiles
+    of one prefill and one decode step."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention.kernel import route
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import model as M
 
     g = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for s in FLASH_TIMED_S:
-        q = torch.randn((1, 32, s, 128), generator=g, device=dev).to(torch.bfloat16)
-        k = torch.randn((1, 8, s, 128), generator=g, device=dev).to(torch.bfloat16)
-        v = torch.randn((1, 8, s, 128), generator=g, device=dev).to(torch.bfloat16)
-        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), reps=7, inner=10)
-        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), reps=7, inner=10)
-        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), reps=7, inner=10)
-        bound_ms, bound_by = flash_bound(s)
-        rows.append({"S": s, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": sdpa_ms})
-        log(f"[{card}] flash_attention bf16 causal (1, 32, {s}, 128) over (1, 8, {s}, "
-            f"128): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {sdpa_ms:.4f} "
-            f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+    for dtype in (torch.bfloat16, torch.float32):
+        r = route(dtype, 128)
+        for s in FLASH_TIMED_S:
+            q, k, v = flash_inputs(g, dev, dtype, 1, 32, 8, s, s, 128, "bshd")
+            calls = {
+                "kernel": lambda: flash_attention(q, k, v, causal=True, block_q=s, block_k=s),
+                "plain": lambda: attention_ref(q, k, v, causal=True),
+                "sdpa": lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+            }
+            dev_ms = {name: graph_ms(fn) for name, fn in calls.items()}
+            eager_ms = {name: cuda_ms(fn, reps=7, inner=10) for name, fn in calls.items()}
+            bound_ms, bound_by = flash_bound(s, dtype)
+            row = {"route": r, "dtype": str(dtype)[6:], "S": s, "ms": dev_ms["kernel"],
+                   "plain_ms": dev_ms["plain"], "library_ms": dev_ms["sdpa"],
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_share": bound_ms / dev_ms["kernel"],
+                   "eager_ms": eager_ms["kernel"], "eager_plain_ms": eager_ms["plain"],
+                   "eager_library_ms": eager_ms["sdpa"]}
+            if dtype == torch.bfloat16 and s == 512:
+                row["profiler_ms"], row["profiler_records"] = profiled_kernel_ms(
+                    calls["kernel"], "flash_tc", "flash_attention_tc")
+            rows.append(row)
+            cross = (f", profiler {row['profiler_ms']:.4f} ms per kernel over "
+                     f"{row['profiler_records']} of {GRAPH_CALLS} records"
+                     if "profiler_ms" in row else "")
+            log(f"[{card}] flash_attention {r} {row['dtype']} causal (1, 32, {s}, 128) over "
+                f"(1, 8, {s}, 128), device ms (CUDA graph of {GRAPH_CALLS}): kernel "
+                f"{dev_ms['kernel']:.4f}{cross}, plain {dev_ms['plain']:.4f}, SDPA "
+                f"{dev_ms['sdpa']:.4f}; bound {bound_ms:.5f} ms ({bound_by}), bound share "
+                f"{row['bound_share']:.3f}; host-inclusive eager ms: kernel "
+                f"{eager_ms['kernel']:.4f}, plain {eager_ms['plain']:.4f}, SDPA "
+                f"{eager_ms['sdpa']:.4f}")
 
     cfg, params = lm["cfg"], lm["params"]
     for b in LM_BUCKETS:
         toks = torch.randint(1, cfg.vocab_size, (1, b), generator=g, device=dev)
         ms = cuda_ms(lambda: M.prefill(params, toks, cfg, LM_MAX_LEN), reps=3, inner=2)
         log(f"[{card}] prefill {LM_ARCH} bucket {b}: {ms:.2f} ms")
-    log_breakdown(card, f"prefill bucket {LM_BUCKETS[-1]}",
-                  lambda: M.prefill(params, toks, cfg, LM_MAX_LEN), top=10)
+    n = log_breakdown(card, f"prefill bucket {LM_BUCKETS[-1]}",
+                      lambda: M.prefill(params, toks, cfg, LM_MAX_LEN), top=10)
+    assert n <= PREFILL_MAX_LAUNCHES, f"prefill launched {n} kernels"
 
     state = M.init_decode_state(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
     tokens = torch.randint(1, cfg.vocab_size, (LM_SLOTS, 1), generator=g, device=dev)
@@ -557,6 +714,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    n_hgmma = hgmma_count(cuda.library_path("flash_attention"))
+    log(f"flash_attention SASS: {n_hgmma} HGMMA instructions")
+    assert n_hgmma > 0, "no wgmma in the flash-attention library"
 
     # 3. kernels vs plain versions on the card
     cam = CameraModel()
@@ -685,7 +845,7 @@ def main() -> int:
     # 7. the LM serving path at full width; 8. its timings
     lm = serve_phase(dev, card)
     b3_rows = lm_timings(dev, card, lm)
-    b3 = b3_rows[-1]  # the largest prefill bucket
+    b3 = next(r for r in b3_rows if r["route"] == "tc" and r["S"] == LM_BUCKETS[-1])
     log(f"whole script {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -707,7 +867,11 @@ def main() -> int:
          "launches": lm["launches"]["flash_attention"], "max_abs_err": b3_err,
          "ms": b3["ms"], "plain_ms": b3["plain_ms"], "bound_ms": b3["bound_ms"],
          "bound_by": b3["bound_by"], "library_ms": b3["library_ms"],
-         "shape": "bf16 causal (1, 32, S, 128) over (1, 8, S, 128), S = 512",
+         "shape": "bf16 causal (1, 32, S, 128) over (1, 8, S, 128), S = 512, "
+                  "tensor-core route, device time",
+         "launches_by_route": {r: lm["launches"].get(f"flash_attention_{r}", 0)
+                               for r in ("tc", "fma")},
+         "hgmma_instructions": n_hgmma,
          "per_shape": b3_rows},
     ]
     print(json.dumps({"kernels": kernels}))

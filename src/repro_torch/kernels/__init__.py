@@ -13,5 +13,6 @@ Kernels:
                      per pixel.
   flash_attention  — causal/GQA softmax attention with an online softmax,
                      one CTA per (query tile, batch*head) looping over
-                     KV tiles.
+                     KV tiles: wgmma on bf16 operands fed by a TMA ring
+                     (bf16, D % 16 == 0), float32 FMAs otherwise.
 """

@@ -23,11 +23,12 @@ def flash_attention(
 
     `block_q`/`block_k` are the reference kernel's tiling: shapes it would
     refuse (Sq or Skv not a multiple of its block) raise here too. They do
-    not change the result; the CUDA kernel tiles with its own 64 x 64 and
-    masks ragged edges. A CPU tensor takes the plain version, a CUDA
-    tensor launches the kernel, any other device raises.
+    not change the result; the CUDA kernels tile with their own 64 x 64 and
+    mask ragged edges. A CPU tensor takes the plain version, a CUDA
+    tensor launches a kernel (read through its strides, output in q's
+    layout), any other device raises.
     """
-    b, hq, sq, d = q.shape
+    hq, sq = q.shape[1], q.shape[2]
     hkv, skv = k.shape[1], k.shape[2]
     if hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention: {hq} query heads over {hkv} KV heads")
@@ -39,7 +40,4 @@ def flash_attention(
         return attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no path for device {q.device}")
-    out = flash_attention_cuda(q.reshape(b * hq, sq, d), k.reshape(b * hkv, skv, d),
-                               v.reshape(b * hkv, skv, d), causal=causal,
-                               q_per_kv=hq // hkv)
-    return out.reshape(b, hq, sq, d)
+    return flash_attention_cuda(q, k, v, causal=causal)

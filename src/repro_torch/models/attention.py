@@ -7,8 +7,10 @@ Counterpart of `repro.models.attention`, serving half:
     card, its plain version on the CPU). The reference names the Pallas
     kernel as the serving/prefill fast path but dispatches its prefill to
     the einsum `attention_full`; the port puts the kernel on that path.
-    It computes scores and probabilities in float32, where
-    `attention_full` rounds them to the input dtype (bf16 in production).
+    It computes scores and softmax statistics in float32, where
+    `attention_full` rounds scores and probabilities to the input dtype
+    (bf16 in production); on the card the bf16 tensor-core kernel rounds
+    only the probabilities to bf16, as operands of their product with V.
   * `attention_decode` — one query against a KV cache, plain PyTorch as
     in the reference (an einsum outside any kernel there).
 
@@ -115,7 +117,9 @@ def attention_core(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True) -> T
     """(B, S, H, D) layout in and out; one `flash_attention` call.
 
     Blocks are the whole sequence, so any length passes the reference
-    kernel's divisibility check; the CUDA kernel tiles on its own."""
+    kernel's divisibility check; the CUDA kernels tile on their own. On the
+    card they read the transposed views in place and write the output in
+    q's (B, S, H, D) layout, so neither transpose costs a copy."""
     sq, skv = q.shape[1], k.shape[1]
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           causal=causal, block_q=sq, block_k=skv)

@@ -11,7 +11,10 @@ BILINEAR_ATOL/RTOL (float atomics reorder the sum of fractional weights);
 the depth max/argmax kernel is bitwise on any stored DSI. Flash attention
 is held to its plain version within the reference's own tolerances
 (`tests/test_kernels.py`): 2e-5 in float32, 2e-2 in bfloat16 (the sums
-run in another order; bf16 outputs round at 2^-8 relative).
+run in another order, the tensor-core route rounds the probabilities to
+bf16 before their product with V; bf16 outputs round at 2^-8 relative).
+Each flash-attention case also asserts the route it took (bf16 with D a
+multiple of 16: tensor cores; otherwise CUDA cores) by its launch counter.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch.events.simulator import (
 )
 from repro_torch.kernels import cuda
 from repro_torch.kernels.backproject_vote import ops
+from repro_torch.kernels.flash_attention.kernel import route
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.local_max.ops import depth_argmax
@@ -154,6 +158,37 @@ def test_cuda_flash_attention_vs_plain(dev, dtype, causal, B, Hq, Hkv, Sq, Skv, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", [
+    (1, 32, 8, 512, 512, 128),  # the serving path's prefill, GQA 4
+    (1, 8, 8, 100, 100, 64),  # GQA 1, ragged
+    (2, 16, 2, 100, 300, 80),  # GQA 8, Sq < Skv, D 80
+    (1, 4, 1, 2047, 2047, 80),  # ragged, one tile short of 2048
+    (1, 4, 4, 40, 72, 256),  # widest heads
+    (1, 4, 2, 64, 64, 24),  # bf16 off the tensor-core route
+])
+def test_cuda_flash_attention_model_layout(dev, dtype, causal, B, Hq, Hkv, Sq, Skv, D):
+    """(B, S, H, D) tensors transposed to (B, H, S, D), as the model passes
+    them: read in place, the output in q's layout, one launch on the route
+    `route` names."""
+    g = torch.Generator().manual_seed(B + Hq + Sq + D)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(dev).transpose(1, 2) for shape in
+               ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    r = route(dtype, D)
+    assert r == ("tc" if dtype == torch.bfloat16 and D % 16 == 0 else "fma")
+    n0 = dict(cuda.launch_counts)
+    got = flash_attention(q, k, v, causal=causal, block_q=Sq, block_k=Skv)
+    torch.cuda.synchronize()
+    for key in ("flash_attention", f"flash_attention_{r}"):
+        assert cuda.launch_counts[key] == n0.get(key, 0) + 1, key
+    assert got.dtype == dtype and got.shape == q.shape and got.stride() == q.stride()
+    want = attention_ref(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
 def test_cuda_flash_attention_refuses(dev):
     q = torch.zeros((1, 2, 16, 12), device=dev)
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -188,6 +223,7 @@ def test_cuda_engine_reduced_matches_cpu(dev):
         eng.run_until_done(1000)
         out.append([r.generated for r in reqs])
     assert cuda.launch_counts["flash_attention"] == cfg.n_layers * len(prompts)
+    assert cuda.launch_counts["flash_attention_fma"] == cfg.n_layers * len(prompts)
     assert out[0] == out[1]
 
 
