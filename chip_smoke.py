@@ -6,14 +6,18 @@
 Phases, each asserting, none caught:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. builds every CUDA kernel from `src/repro_torch/csrc` (one nvcc per
-     source, all started together) and counts the HGMMA (wgmma)
-     instructions in the flash-attention library's SASS: none fails;
+     source, all started together), counts the HGMMA (wgmma) instructions
+     in the flash-attention library's SASS and the bulk copies
+     (B1_BULK_COPY_SASS) in the sweep kernel's: none fails;
   3. holds the EMVS kernels against their plain PyTorch versions on the
-     card: random nearest/bilinear, float/quantized cases and the boundary
+     card: random nearest/bilinear, float/quantized cases, the boundary
      grid (events on w-1/h-1, half-integer coords, fully padded frames,
-     non-finite coords). Nearest is bitwise on dsi, conf and zf; bilinear
-     dsi within BILINEAR_ATOL/RTOL (f32 atomics reorder the sum of
-     fractional weights); the depth max/argmax kernel is bitwise on any DSI;
+     non-finite coords) and the sweep kernel's edges (B1_EDGE_CASES: event
+     counts off the ring stage, E off the 16-event granule, one event, C=1,
+     odd Nz, Nz=2, S=3, frames past the phi window, a 37x23 plane). Nearest
+     is bitwise on dsi, conf and zf; bilinear dsi within
+     BILINEAR_ATOL/RTOL (f32 atomics reorder the sum of fractional
+     weights); the depth max/argmax kernel is bitwise on any DSI;
   4. drives the EMVS main path at the paper's width: the simulator's
      simulation_3planes scene (SceneConfig defaults), 96 trajectory steps,
      `aggregate` at 1024 events per frame, `run_emvs` on the 240x180
@@ -22,9 +26,13 @@ Phases, each asserting, none caught:
      and read just after; both kernels must have launched. The same run
      with the plain scatter formulation must agree bitwise on dsi, depth
      and mask, and AbsRel against the ground truth must stay below 0.25;
-  5. times each EMVS kernel and its plain version at the main path's
-     shapes (CUDA events, warm, median) and the run_emvs wall time, and
-     profiles one warm run_emvs (device-kernel time, busy share, top ops);
+  5. times each EMVS kernel at the main path's largest bucket and at its
+     first segment alone (S=1) as device time (a CUDA graph of GRAPH_CALLS
+     calls) beside host-inclusive eager times, with the bound and the bound
+     share, cross-checks B1's device time against the profiler's, times
+     the plain versions, prints B1's shared memory per CTA, the run_emvs
+     wall time, and profiles one warm run_emvs (device-kernel time, busy
+     share, top ops);
   6. holds the flash-attention kernels against their plain version on the
      card, within the reference's tolerances (FLASH_TOL): the serving
      shapes (1, 32, S, 128) over (1, 8, S, 128) for S in 32, 128, 512,
@@ -71,6 +79,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -101,10 +110,26 @@ LM_SLOTS, LM_MAX_LEN, LM_BUCKETS = 4, 1024, (32, 128, 512)
 LM_REQUESTS, LM_NEW_TOKENS = 8, 16
 FLASH_TIMED_S = (32, 128, 512, 2048)
 GRAPH_CALLS = 20  # calls captured in one CUDA graph for a device time
+PROFILER_TRACES = 3  # traces of a profiler cross-check that may return no records
 # launches in one profiled prefill of bucket 512: 3,001 with the q/k/v and
 # output copies around the attention kernel, 144 fewer without them
 PREFILL_MAX_LAUNCHES = 2857
 CUOBJDUMP_DEFAULT = "/usr/local/cuda/bin/cuobjdump"
+# the SASS of the 1-D bulk copy (cp.async.bulk) that feeds the sweep kernel's ring
+B1_BULK_COPY_SASS = "UBLKCP"
+# (S, F, E, Nz, w, h, what) inputs that reach the sweep kernel's edges; the
+# ring stage is 1,984 events, the phi window 512 frames
+B1_EDGE_CASES = (
+    (1, 3, 1000, 8, 240, 180, "events not a multiple of the stage"),
+    (2, 3, 1023, 8, 240, 180, "E not a multiple of 16"),
+    (1, 1, 1, 4, 240, 180, "a single event"),
+    (2, 1, 1024, 8, 240, 180, "C=1"),
+    (1, 4, 512, 7, 240, 180, "odd Nz"),
+    (1, 4, 256, 2, 240, 180, "Nz=2"),
+    (3, 4, 700, 12, 240, 180, "S=3"),
+    (1, 600, 4, 4, 240, 180, "frames past the phi window"),
+    (2, 4, 64, 6, 37, 23, "a 37 x 23 plane, no multiple of 16 bytes"),
+)
 
 
 def log(msg: str) -> None:
@@ -173,10 +198,12 @@ def profiled_kernel_ms(fn, name_part: str, counter: str,
     kernel records the profiler returned.
 
     That `fn` launched its kernel `calls` times is checked on the launch
-    counter `counter`. The profiler's tracing may drop a kernel record now
-    and then (19 of 20 returned in one H100 run), so the mean is taken over
-    the records it returned, which must be at least one and at most
-    `calls`."""
+    counter `counter`. The profiler's tracing may drop kernel records now
+    and then (19 of 20 returned in one H100 run, none in another, where an
+    earlier trace in the same process had returned 20 of 20), so the mean
+    is taken over the records it returned, which must be at least one and
+    at most `calls`; a trace that returned none is taken again, up to
+    PROFILER_TRACES times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -185,30 +212,34 @@ def profiled_kernel_ms(fn, name_part: str, counter: str,
 
     fn()
     torch.cuda.synchronize()
-    before = cuda.launch_counts[counter]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    launched = cuda.launch_counts[counter] - before
-    assert launched == calls, f"{calls} calls launched {launched} {counter} kernels"
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and name_part in ev.key:
-            total += getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
-            count += ev.count
+    for trace in range(1, PROFILER_TRACES + 1):
+        before = cuda.launch_counts[counter]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched = cuda.launch_counts[counter] - before
+        assert launched == calls, f"{calls} calls launched {launched} {counter} kernels"
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and name_part in ev.key:
+                total += getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
+                count += ev.count
+        if count:
+            break
+        log(f"  the profiler returned no {name_part} kernel records (trace {trace})")
     assert 1 <= count <= calls, f"the profiler returned {count} {name_part} kernels of {calls}"
     return total / 1e3 / count, count
 
 
-def hgmma_count(lib) -> int:
-    """HGMMA instructions (wgmma) in the SASS of a built library."""
+def sass_count(lib, mnemonic: str) -> int:
+    """Lines of the SASS of a built library that hold `mnemonic`."""
     import shutil
 
     tool = shutil.which("cuobjdump") or CUOBJDUMP_DEFAULT
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    return sum(mnemonic in line for line in sass.splitlines())
 
 
 def log_breakdown(card: str, what: str, fn, top: int = 8) -> int:
@@ -289,20 +320,27 @@ def compare_b1_b2(xy0, valid, phi, *, cam, mode: str, quantized: bool, what: str
     return err1, err2
 
 
+def kernel_cases_input(rng, w: int, h: int):
+    """The random case: S=2, F=4, E=1024, Nz=128, one fully padded frame."""
+    import numpy as np
+
+    s, f, e, nz = 2, 4, 1024, 128
+    xy0 = rng.uniform((-8, -8), (w + 8, h + 8), (s, f, e, 2)).astype(np.float32)
+    valid = rng.random((s, f, e)) > 0.2
+    valid[1, 2] = False  # one fully padded frame
+    phi = np.concatenate([rng.uniform(0.7, 1.3, (s, f, nz, 1)),
+                          rng.uniform(-6, 6, (s, f, nz, 2))], -1).astype(np.float32)
+    return xy0, valid, phi
+
+
 def kernel_cases(cam, dev) -> None:
     """Phase 3: random cases and the boundary grid, kernel vs plain."""
     import numpy as np
     import torch
 
     w, h = cam.width, cam.height
-    rng = np.random.default_rng(0)
-    s, f, e, nz = 2, 4, 1024, 128
-    xy0 = rng.uniform((-8, -8), (w + 8, h + 8), (s, f, e, 2)).astype(np.float32)
-    valid = (rng.random((s, f, e)) > 0.2).astype(np.float32)
-    valid[1, 2] = 0.0  # one fully padded frame
-    phi = np.concatenate([rng.uniform(0.7, 1.3, (s, f, nz, 1)),
-                          rng.uniform(-6, 6, (s, f, nz, 2))], -1).astype(np.float32)
-    args = [torch.from_numpy(a).to(dev) for a in (xy0, valid, phi)]
+    args = [torch.from_numpy(a).to(dev) for a in
+            kernel_cases_input(np.random.default_rng(0), w, h)]
     for mode in ("nearest", "bilinear"):
         for quantized in (False, True):
             what = f"random {mode} quantized={quantized}"
@@ -321,8 +359,8 @@ def kernel_cases(cam, dev) -> None:
     ], dtype=np.float32)
     f, nz = 4, 8
     xy0 = np.tile(specials[None, None], (1, f, 1, 1))
-    valid = np.ones(xy0.shape[:-1], np.float32)
-    valid[0, 3] = 0.0  # fully padded frame
+    valid = np.ones(xy0.shape[:-1], bool)
+    valid[0, 3] = False  # fully padded frame
     phi = np.concatenate([np.ones((1, f, nz, 1)), np.zeros((1, f, nz, 2))],
                          -1).astype(np.float32)
     args = [torch.from_numpy(a).to(dev) for a in (xy0, valid, phi)]
@@ -340,6 +378,22 @@ def kernel_cases(cam, dev) -> None:
         what = f"non-finite phi nearest quantized={quantized}"
         compare_b1_b2(*args, cam=cam, mode="nearest", quantized=quantized, what=what)
         log(f"  {what}: ok")
+
+    # the sweep kernel's edges: ring stages, padding, phi window
+    for seed, (s, f, e, nz, pw, ph, what) in enumerate(B1_EDGE_CASES):
+        plane = types.SimpleNamespace(width=pw, height=ph, cx=pw / 2 + 0.3, cy=ph / 2 - 0.2)
+        rng = np.random.default_rng(100 + seed)
+        xy0 = rng.uniform((-8, -8), (pw + 8, ph + 8), (s, f, e, 2)).astype(np.float32)
+        valid = rng.random((s, f, e)) > 0.2
+        phi = np.concatenate([rng.uniform(0.7, 1.3, (s, f, nz, 1)),
+                              rng.uniform(-6, 6, (s, f, nz, 2))], -1).astype(np.float32)
+        args = [torch.from_numpy(a).to(dev) for a in (xy0, valid, phi)]
+        label = f"edge {what} (S={s} F={f} E={e} Nz={nz} {pw}x{ph})"
+        for mode in ("nearest", "bilinear"):
+            for quantized in (False, True):
+                compare_b1_b2(*args, cam=plane, mode=mode, quantized=quantized,
+                              what=f"{label} {mode} quantized={quantized}")
+        log(f"  {label}: ok in both modes, float and quantized")
 
 
 def flash_inputs(g, dev, dtype, b, hq, hkv, sq, skv, d, layout: str):
@@ -658,6 +712,67 @@ def lm_timings(dev, card: str, lm: dict) -> list[dict]:
     return rows
 
 
+def emvs_config():
+    """The EMVS main path's camera (DAVIS240), DSI (128 planes over
+    0.6-4.5 m), options (fused kernel, nearest, Table-1 quantized) and scene."""
+    from repro_torch.core.camera import CameraModel
+    from repro_torch.core.dsi import DSIConfig
+    from repro_torch.core.pipeline import EMVSOptions
+    from repro_torch.events.simulator import SceneConfig, make_scene
+
+    cam = CameraModel()
+    dsi_cfg = DSIConfig.for_camera(cam, num_planes=128, z_min=0.6, z_max=4.5)
+    opts = EMVSOptions(formulation="kernel", voting="nearest", quantized=True,
+                       keyframe_dist_frac=0.05)
+    return cam, dsi_cfg, opts, make_scene(SceneConfig(name="simulation_3planes"))
+
+
+def emvs_frames(cam, scene):
+    """The simulated events of a 96-step arc and their 1024-event frames."""
+    from repro_torch.events.aggregation import aggregate
+    from repro_torch.events.simulator import make_trajectory, simulate_events
+
+    traj = make_trajectory("simulation_3planes", 96)
+    events = simulate_events(cam, scene, traj)
+    return events, aggregate(cam, events, traj, events_per_frame=1024)
+
+
+def main_bucket(cam, dsi_cfg, frames, opts):
+    """The sweep kernel's inputs `(xy0, valid, phi)` for the capacity bucket
+    with most segments, as `run_emvs` builds them."""
+    import torch
+
+    from repro_torch.core.geometry import SE3
+    from repro_torch.core.pipeline import (
+        bucket_capacity,
+        pad_segments,
+        plan_segments,
+        precompute_batch_geometry,
+    )
+    from repro_torch.kernels.backproject_vote.ops import canonical_inputs
+
+    by_cap: dict[int, list] = {}
+    for seg in plan_segments(frames, dsi_cfg, opts):
+        by_cap.setdefault(bucket_capacity(seg[1] - seg[0]), []).append(seg)
+    cap = max(by_cap, key=lambda c: len(by_cap[c]))
+    batch = pad_segments(frames, by_cap[cap], cap)
+    planes = dsi_cfg.planes(device=frames.xy.device)
+    geoms = precompute_batch_geometry(
+        cam, batch.poses_R, batch.poses_t,
+        SE3(batch.ref_R[:, None], batch.ref_t[:, None]), planes,
+        planes[dsi_cfg.num_planes // 2])
+    phi = torch.stack([geoms.phi.alpha, geoms.phi.beta_x, geoms.phi.beta_y], -1)
+    return canonical_inputs(batch.xy, batch.valid.bool(), geoms.H, phi,
+                            quantized=opts.quantized, frame_valid=batch.frame_valid.bool())
+
+
+def emvs_bound(nbytes: int, nops: int) -> tuple[float, str]:
+    """Least ms for `nbytes` of device memory traffic and `nops` float32
+    operations on the card, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def main() -> int:
     import torch
 
@@ -671,29 +786,11 @@ def main() -> int:
     sys.path.insert(0, SRC)
     t_start = time.perf_counter()
 
-    from repro_torch.core.camera import CameraModel
-    from repro_torch.core.dsi import DSIConfig, to_storage
-    from repro_torch.core.geometry import SE3
-    from repro_torch.core.pipeline import (
-        EMVSOptions,
-        bucket_capacity,
-        pad_segments,
-        plan_segments,
-        precompute_batch_geometry,
-        run_emvs,
-    )
-    from repro_torch.events.aggregation import aggregate
-    from repro_torch.events.simulator import (
-        SceneConfig,
-        absrel,
-        ground_truth_depth,
-        make_scene,
-        make_trajectory,
-        simulate_events,
-    )
+    from repro_torch.core.dsi import to_storage
+    from repro_torch.core.pipeline import run_emvs
+    from repro_torch.events.simulator import absrel, ground_truth_depth
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.backproject_vote.kernel import backproject_vote_cuda
-    from repro_torch.kernels.backproject_vote.ops import canonical_inputs
+    from repro_torch.kernels.backproject_vote import kernel as b1_kernel
     from repro_torch.kernels.backproject_vote.ref import backproject_vote_ref
     from repro_torch.kernels.local_max.kernel import depth_argmax_cuda
     from repro_torch.kernels.local_max.ref import depth_argmax_ref
@@ -714,26 +811,23 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    n_hgmma = hgmma_count(cuda.library_path("flash_attention"))
+    n_hgmma = sass_count(cuda.library_path("flash_attention"), "HGMMA")
     log(f"flash_attention SASS: {n_hgmma} HGMMA instructions")
     assert n_hgmma > 0, "no wgmma in the flash-attention library"
+    n_bulk = sass_count(cuda.library_path("backproject_vote"), B1_BULK_COPY_SASS)
+    log(f"backproject_vote SASS: {n_bulk} {B1_BULK_COPY_SASS} (bulk copy) instructions")
+    assert n_bulk > 0, "no bulk copy in the sweep kernel's library"
 
     # 3. kernels vs plain versions on the card
-    cam = CameraModel()
+    cam, dsi_cfg, opts, scene = emvs_config()
     log("kernel vs plain:")
     kernel_cases(cam, dev)
 
     # 4. the main path at the paper's width
-    dsi_cfg = DSIConfig.for_camera(cam, num_planes=128, z_min=0.6, z_max=4.5)
-    opts = EMVSOptions(formulation="kernel", voting="nearest", quantized=True,
-                       keyframe_dist_frac=0.05)
-    scene = make_scene(SceneConfig(name="simulation_3planes"))
     torch.cuda.synchronize()
     cuda.launch_counts.clear()
     t0 = time.perf_counter()
-    traj = make_trajectory("simulation_3planes", 96)
-    events = simulate_events(cam, scene, traj)
-    frames = aggregate(cam, events, traj, events_per_frame=1024)
+    events, frames = emvs_frames(cam, scene)
     result = run_emvs(cam, dsi_cfg, frames, opts)
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t0
@@ -768,56 +862,66 @@ def main() -> int:
     log(f"kernel == scatter bitwise on dsi, depth, mask; mean AbsRel {mean_err:.4f}")
     assert mean_err < 0.25, f"mean AbsRel {mean_err} too high"
 
-    # 5. timings at the main path's shapes: the bucket with most segments
-    segs = plan_segments(frames, dsi_cfg, opts)
-    by_cap: dict[int, list] = {}
-    for seg in segs:
-        by_cap.setdefault(bucket_capacity(seg[1] - seg[0]), []).append(seg)
-    cap = max(by_cap, key=lambda c: len(by_cap[c]))
-    batch = pad_segments(frames, by_cap[cap], cap)
-    planes = dsi_cfg.planes(device=dev)
-    geoms = precompute_batch_geometry(
-        cam, batch.poses_R, batch.poses_t,
-        SE3(batch.ref_R[:, None], batch.ref_t[:, None]), planes,
-        planes[dsi_cfg.num_planes // 2])
-    phi = torch.stack([geoms.phi.alpha, geoms.phi.beta_x, geoms.phi.beta_y], -1)
-    xy0, valid, phi = canonical_inputs(batch.xy, batch.valid, geoms.H, phi,
-                                       quantized=True, frame_valid=batch.frame_valid)
+    # 5. timings at the main path's shapes: the bucket with most segments,
+    # and its first segment alone (S=1)
+    xy0, valid, phi = main_bucket(cam, dsi_cfg, frames, opts)
     s, c, e = valid.shape
     nz, h, w = dsi_cfg.shape
     shape_note = f"S={s} C={c} E={e} Nz={nz} {w}x{h}"
     err1, err2 = compare_b1_b2(xy0, valid, phi, cam=cam, mode="nearest",
                                quantized=True, what=f"main-path bucket {shape_note}")
     log(f"main-path bucket {shape_note}: kernels bitwise with plain versions")
+    smem = b1_kernel.smem_bytes(w, h)
+    assert b1_kernel.kernel_smem_bytes(w, h) == smem, "the wrapper's shared-memory plan"
+    log(f"backproject_vote: {smem} B of shared memory per CTA")
 
-    x0, y0 = xy0[..., 0].contiguous(), xy0[..., 1].contiguous()
+    timed = {}
+    for label, rows in (("main", slice(None)), ("S=1", slice(0, 1))):
+        x0 = xy0[rows, ..., 0].contiguous()
+        y0 = xy0[rows, ..., 1].contiguous()
+        v, p = valid[rows].contiguous(), phi[rows].contiguous()
+        stored = b1_kernel.backproject_vote_cuda(x0, y0, v, p, cx=cam.cx, cy=cam.cy,
+                                                 w=w, h=h, quantized=True)
 
-    def b1():
-        return backproject_vote_cuda(x0, y0, valid, phi, cx=cam.cx, cy=cam.cy,
-                                     w=w, h=h, quantized=True)
+        def b1(x0=x0, y0=y0, v=v, p=p):
+            return b1_kernel.backproject_vote_cuda(x0, y0, v, p, cx=cam.cx, cy=cam.cy,
+                                                   w=w, h=h, quantized=True)
 
-    def b1_plain():
-        return to_storage(backproject_vote_ref(xy0, valid, phi, cx=cam.cx, cy=cam.cy,
-                                               w=w, h=h, quantize_plane_coords=True))
+        def b2(stored=stored):
+            return depth_argmax_cuda(stored)
 
-    stored = b1()
-    b1_ms = cuda_ms(b1, reps=7, inner=5)
-    b1_plain_ms = cuda_ms(b1_plain, reps=3, inner=1)
-    b2_ms = cuda_ms(lambda: depth_argmax_cuda(stored), reps=7, inner=5)
-    b2_plain_ms = cuda_ms(lambda: depth_argmax_ref(stored), reps=7, inner=5)
-
-    n_valid = int((valid != 0).sum())
-    b1_bytes = 4 * (3 * s * c * e + s * c * nz * 3) + 2 * s * nz * h * w
-    b1_ops = B1_OPS_PER_PROJECTION * n_valid * nz
-    b2_bytes = 2 * s * nz * h * w + 8 * s * h * w
-    b2_ops = B2_OPS_PER_VOXEL * s * nz * h * w
-
-    def bound(nbytes: int, nops: int) -> tuple[float, str]:
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
-        return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-
-    b1_bound, b1_by = bound(b1_bytes, b1_ops)
-    b2_bound, b2_by = bound(b2_bytes, b2_ops)
+        sb = v.shape[0]
+        # x0, y0 (float32) and the bool mask per event, phi, the int16 DSI
+        b1_bound, b1_by = emvs_bound(
+            9 * sb * c * e + 12 * sb * c * nz + 2 * sb * nz * h * w,
+            B1_OPS_PER_PROJECTION * int(v.sum()) * nz)
+        b2_bound, b2_by = emvs_bound(2 * sb * nz * h * w + 8 * sb * h * w,
+                                     B2_OPS_PER_VOXEL * sb * nz * h * w)
+        row = {"S": sb, "b1_device_ms": graph_ms(b1), "b1_eager_ms": cuda_ms(b1, reps=7, inner=5),
+               "b1_bound_ms": b1_bound, "b1_bound_by": b1_by,
+               "b2_device_ms": graph_ms(b2), "b2_eager_ms": cuda_ms(b2, reps=7, inner=5),
+               "b2_bound_ms": b2_bound, "b2_bound_by": b2_by}
+        if label == "main":
+            row["b1_plain_ms"] = cuda_ms(lambda: to_storage(backproject_vote_ref(
+                xy0, valid, phi, cx=cam.cx, cy=cam.cy, w=w, h=h,
+                quantize_plane_coords=True)), reps=3, inner=1)
+            row["b2_plain_ms"] = cuda_ms(lambda: depth_argmax_ref(stored), reps=7, inner=5)
+            row["b1_profiler_ms"], row["b1_profiler_records"] = profiled_kernel_ms(
+                b1, "backproject_vote", "backproject_vote")
+        timed[label] = row
+        log(f"[{card}] backproject_vote at S={sb} C={c} E={e} Nz={nz} {w}x{h} int16: "
+            f"device {row['b1_device_ms']:.4f} ms (CUDA graph of "
+            f"{GRAPH_CALLS}), host-inclusive eager {row['b1_eager_ms']:.4f} ms; bound "
+            f"{b1_bound:.4f} ms ({b1_by}), bound share {b1_bound / row['b1_device_ms']:.3f}"
+            + (f"; profiler {row['b1_profiler_ms']:.4f} ms over {row['b1_profiler_records']} "
+               f"of {GRAPH_CALLS} records; plain {row['b1_plain_ms']:.2f} ms"
+               if label == "main" else ""))
+        log(f"[{card}] depth_argmax at S={sb} Nz={nz} {w}x{h} int16: device "
+            f"{row['b2_device_ms']:.4f} ms, host-inclusive eager {row['b2_eager_ms']:.4f} ms; "
+            f"bound {b2_bound:.4f} ms ({b2_by}), bound share "
+            f"{b2_bound / row['b2_device_ms']:.3f}"
+            + (f"; plain {row['b2_plain_ms']:.4f} ms" if label == "main" else ""))
+    main_row = timed["main"]
 
     walls = []
     for _ in range(3):
@@ -827,11 +931,6 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-
-    log(f"[{card}] backproject_vote at {shape_note}: kernel {b1_ms:.4f} ms, "
-        f"plain {b1_plain_ms:.2f} ms, bound {b1_bound:.4f} ms ({b1_by})")
-    log(f"[{card}] depth_argmax at S={s} Nz={nz} {w}x{h} int16: kernel "
-        f"{b2_ms:.4f} ms, plain {b2_plain_ms:.4f} ms, bound {b2_bound:.4f} ms ({b2_by})")
     log(f"[{card}] run_emvs (kernel, nearest, quantized) warm wall "
         f"{1e3 * wall:.1f} ms median of {len(walls)} ({len(result.segments)} "
         f"segments, {frames.xy.shape[0]} frames); whole script "
@@ -853,14 +952,20 @@ def main() -> int:
          "source": "src/repro_torch/csrc/backproject_vote.cu",
          "replaces": "src/repro/kernels/backproject_vote/kernel.py:241",
          "launches": launches["backproject_vote"], "max_abs_err": err1,
-         "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound,
-         "bound_by": b1_by, "library_ms": None},
+         "ms": main_row["b1_eager_ms"], "plain_ms": main_row["b1_plain_ms"],
+         "bound_ms": main_row["b1_bound_ms"], "bound_by": main_row["b1_bound_by"],
+         "library_ms": None, "device_ms": main_row["b1_device_ms"],
+         "device_ms_s1": timed["S=1"]["b1_device_ms"], "smem_bytes": smem,
+         "bulk_copy_instructions": n_bulk,
+         "shape": f"{shape_note} int16; ms host-inclusive eager, device_ms a CUDA graph"},
         {"name": "depth_argmax", "route": "cuda",
          "source": "src/repro_torch/csrc/local_max.cu",
          "replaces": "src/repro/kernels/local_max/kernel.py:74",
          "launches": launches["depth_argmax"], "max_abs_err": err2,
-         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
-         "bound_by": b2_by, "library_ms": None},
+         "ms": main_row["b2_eager_ms"], "plain_ms": main_row["b2_plain_ms"],
+         "bound_ms": main_row["b2_bound_ms"], "bound_by": main_row["b2_bound_by"],
+         "library_ms": None, "device_ms": main_row["b2_device_ms"],
+         "device_ms_s1": timed["S=1"]["b2_device_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:101",

@@ -80,7 +80,7 @@ class SegmentBatch(NamedTuple):
     """
 
     xy: Tensor  # (S, C, E, 2) rectified event coords
-    valid: Tensor  # (S, C, E) float32 per-event validity
+    valid: Tensor  # (S, C, E) float32 1/0 per-event validity (a mask)
     frame_valid: Tensor  # (S, C) float32 1 for real frames, 0 for padding
     poses_R: Tensor  # (S, C, 3, 3)
     poses_t: Tensor  # (S, C, 3)
@@ -292,10 +292,11 @@ def sweep_segment_batch(
     if opts.formulation == "kernel":
         phi = torch.stack([geoms.phi.alpha, geoms.phi.beta_x, geoms.phi.beta_y],
                           dim=-1)  # (S, C, Nz, 3)
+        # the batch's 1/0 weights come from bool masks (`pad_segments`)
         dsi, conf, zf = backproject_vote_frames(
-            batch.xy, batch.valid, geoms.H, phi, cam=cam, dsi_cfg=dsi_cfg,
+            batch.xy, batch.valid.bool(), geoms.H, phi, cam=cam, dsi_cfg=dsi_cfg,
             mode=opts.voting, quantized=opts.quantized,
-            frame_valid=batch.frame_valid)
+            frame_valid=batch.frame_valid.bool())
         if opts.quantized:
             dsi = dsi_lib.from_storage(dsi)
         dm = detect_and_filter_from(

@@ -35,6 +35,7 @@ from repro_torch.events.simulator import (
 )
 from repro_torch.kernels import cuda
 from repro_torch.kernels.backproject_vote import ops
+from repro_torch.kernels.backproject_vote.kernel import backproject_vote_cuda
 from repro_torch.kernels.flash_attention.kernel import route
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -55,7 +56,7 @@ def dev():
 def _inputs(seed: int, s: int, f: int, e: int, nz: int, w: int, h: int):
     rng = np.random.default_rng(seed)
     xy0 = rng.uniform((-8, -8), (w + 8, h + 8), (s, f, e, 2)).astype(np.float32)
-    valid = (rng.random((s, f, e)) > 0.2).astype(np.float32)
+    valid = rng.random((s, f, e)) > 0.2
     phi = np.concatenate([rng.uniform(0.7, 1.3, (s, f, nz, 1)),
                           rng.uniform(-6, 6, (s, f, nz, 2))], -1).astype(np.float32)
     return [torch.from_numpy(a) for a in (xy0, valid, phi)]
@@ -84,6 +85,53 @@ def test_cuda_kernels_vs_plain(dev, mode, quantized):
     conf_r, zf_r = depth_argmax(dsi.cpu())
     assert torch.equal(conf.cpu(), conf_r)
     assert torch.equal(zf.cpu(), zf_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("S,F,E,NZ,W,H", [
+    (1, 3, 1000, 8, 240, 180),  # 3,000 events: not a multiple of the 1,984-event stage
+    (2, 3, 1023, 8, 240, 180),  # E not a multiple of 4: padded with zero weights
+    (1, 1, 1, 4, 240, 180),  # a single event
+    (2, 1, 1024, 8, 240, 180),  # C=1
+    (1, 4, 512, 7, 240, 180),  # odd Nz
+    (1, 4, 256, 2, 240, 180),  # Nz=2
+    (3, 4, 700, 12, 240, 180),  # S=3
+    (1, 600, 4, 4, 240, 180),  # frames past the 512-frame phi window
+    (2, 4, 64, 6, 37, 23),  # a plane whose size is no multiple of 16 bytes
+])
+def test_cuda_sweep_edges(dev, mode, quantized, S, F, E, NZ, W, H):
+    """The sweep kernel's edges (ring stages, padding, phi window, plane
+    sizes), one launch each, against the plain version."""
+    xy0, valid, phi = _inputs(S * 1000 + F + E + NZ, S, F, E, NZ, W, H)
+    kw = dict(cx=W / 2 + 0.3, cy=H / 2 - 0.2, w=W, h=H, mode=mode, quantized=quantized)
+    n0 = cuda.launch_counts["backproject_vote"]
+    dsi, _, _ = ops.backproject_vote_detect(xy0.to(dev), valid.to(dev), phi.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["backproject_vote"] == n0 + 1
+    dsi_p, _, _ = ops.backproject_vote_detect(xy0, valid, phi, **kw)
+    if mode == "nearest":
+        assert torch.equal(dsi.cpu(), dsi_p)
+    else:
+        torch.testing.assert_close(dsi.cpu().float(), dsi_p.float(),
+                                   atol=BILINEAR_ATOL, rtol=BILINEAR_RTOL)
+
+
+@pytest.mark.gpu
+def test_cuda_sweep_refuses_float_weights(dev):
+    """On the card as on the CPU, validity must be a bool mask: a float
+    weight (possibly fractional, which the int32 counts cannot hold) is
+    refused before any launch."""
+    xy0, valid, phi = (t.to(dev) for t in _inputs(5, 2, 4, 64, 8, 240, 180))
+    kw = dict(cx=132.0, cy=110.0, w=240, h=180, quantized=True)
+    n0 = cuda.launch_counts["backproject_vote"]
+    half = valid.float() * 0.5
+    with pytest.raises(ValueError, match="bool mask"):
+        backproject_vote_cuda(xy0[..., 0], xy0[..., 1], half, phi, **kw)
+    with pytest.raises(ValueError, match="bool mask"):
+        ops.backproject_vote_detect(xy0, half, phi, **kw)
+    assert cuda.launch_counts["backproject_vote"] == n0
 
 
 @pytest.mark.gpu

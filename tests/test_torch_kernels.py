@@ -85,8 +85,9 @@ def _reference(xy0, valid, phi, mode: str, quantized: bool):
 
 
 def _port(xy0, valid, phi, mode: str, quantized: bool):
+    """The port's op; it takes the 1/0 validity as a bool mask."""
     dsi, conf, zf = t_ops.backproject_vote_detect(
-        torch.from_numpy(xy0), torch.from_numpy(valid), torch.from_numpy(phi),
+        torch.from_numpy(xy0), torch.from_numpy(valid).bool(), torch.from_numpy(phi),
         cx=CX, cy=CY, w=W, h=H, mode=mode, quantized=quantized)
     return dsi.numpy(), conf.numpy(), zf.numpy()
 
@@ -139,7 +140,7 @@ def test_backproject_vote_frames_bitwise(quantized):
         torch.from_numpy(xy), torch.from_numpy(valid), torch.from_numpy(H3),
         torch.from_numpy(phi), cam=interop.camera_from_dict(dataclasses.asdict(cam)),
         dsi_cfg=interop.dsi_config_from_dict(dataclasses.asdict(cfg)),
-        mode="nearest", quantized=quantized, frame_valid=torch.from_numpy(fv))
+        mode="nearest", quantized=quantized, frame_valid=torch.from_numpy(fv).bool())
     for r, g, what in zip(ref, got, ("dsi", "conf", "zf")):
         r = np.asarray(r)
         # the reference kernel stores float32 when not quantized, int16 when quantized
@@ -149,7 +150,8 @@ def test_backproject_vote_frames_bitwise(quantized):
 
 def test_backproject_vote_batched_segments_match_single():
     """A bucket (S, F, E) gives each segment what its own call gives."""
-    segs = [_inputs(20 + k, 3, 128, 8) for k in range(3)]
+    segs = [(xy0, valid > 0, phi) for xy0, valid, phi in
+            (_inputs(20 + k, 3, 128, 8) for k in range(3))]
     batched = t_ops.backproject_vote_detect(
         *(torch.from_numpy(np.stack([s[i] for s in segs])) for i in range(3)),
         cx=CX, cy=CY, w=W, h=H, quantized=True)

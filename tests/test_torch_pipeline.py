@@ -198,7 +198,8 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "bench_sweep.py"]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
