@@ -14,8 +14,12 @@ Phases, each asserting, none caught:
      grid (events on w-1/h-1, half-integer coords, fully padded frames,
      non-finite coords) and the sweep kernel's edges (B1_EDGE_CASES: event
      counts off the ring stage, E off the 16-event granule, one event, C=1,
-     odd Nz, Nz=2, S=3, frames past the phi window, a 37x23 plane). Nearest
-     is bitwise on dsi, conf and zf; bilinear dsi within
+     odd Nz, Nz=2, S=3, frames past the phi window, a 37x23 plane); then
+     (3b) B1's row bands (B1_BAND_CASES: 346x260 and 400x300 on their
+     band plans, 240x180 with forced bands of 7 and 45 rows) and the
+     boundary grid at 346x260 with rows either side of its band edge,
+     each case one launch of each kernel, with its band plan logged.
+     Nearest is bitwise on dsi, conf and zf; bilinear dsi within
      BILINEAR_ATOL/RTOL (f32 atomics reorder the sum of fractional
      weights); the depth max/argmax kernel is bitwise on any DSI;
   4. drives the EMVS main path at the paper's width: the simulator's
@@ -30,9 +34,22 @@ Phases, each asserting, none caught:
      first segment alone (S=1) as device time (a CUDA graph of GRAPH_CALLS
      calls) beside host-inclusive eager times, with the bound and the bound
      share, cross-checks B1's device time against the profiler's, times
-     the plain versions, prints B1's shared memory per CTA, the run_emvs
-     wall time, and profiles one warm run_emvs (device-kernel time, busy
-     share, top ops);
+     the plain versions, prints B1's band plan and shared memory per CTA,
+     the run_emvs wall time, and profiles one warm run_emvs (device-kernel
+     time, busy share, top ops);
+  4b. drives the same scene, trajectory and options through a DAVIS346
+     (346x260, MVSEC intrinsics; B1 in two row bands): launch counts
+     zeroed before and read after each run, kernel == scatter bitwise on
+     dsi, depth and mask, float and quantized, mean AbsRel on the float
+     datapath below 0.25, the warm wall and a profile of one warm run,
+     and B1's device time at the bucket with most segments beside its
+     bound;
+  4c. runs the paper's Fig 4a, 4b and 7a (`repro_torch.benchmarks`, the
+     reference's sequences and sizes) and Table 3 on the card: every
+     kernel row equals its matmul row and every claim holds;
+  4d. runs both examples (`repro_torch.examples`) at 24 trajectory steps,
+     `emvs_reconstruction` on DAVIS240 and DAVIS346: the merged map's
+     outlier filter on the card keeps the points the CPU's filter keeps;
   6. holds the flash-attention kernels against their plain version on the
      card, within the reference's tolerances (FLASH_TOL): the serving
      shapes (1, 32, S, 128) over (1, 8, S, 128) for S in 32, 128, 512,
@@ -130,6 +147,11 @@ B1_EDGE_CASES = (
     (1, 600, 4, 4, 240, 180, "frames past the phi window"),
     (2, 4, 64, 6, 37, 23, "a 37 x 23 plane, no multiple of 16 bytes"),
 )
+# (w, h, forced band rows or None for the band plan): planes past one CTA's
+# shared memory (DAVIS346: 2 bands, 400x300: 3) and forced band edges at
+# 240x180, where bilinear votes straddle two bands
+B1_BAND_CASES = ((346, 260, None), (400, 300, None), (240, 180, 7), (240, 180, 45))
+B1_BAND_PLANES = 32
 
 
 def log(msg: str) -> None:
@@ -283,22 +305,28 @@ def assert_equal(a, b, what: str) -> None:
     assert bad == 0, f"{what}: {bad} of {a.numel()} elements differ"
 
 
-def compare_b1_b2(xy0, valid, phi, *, cam, mode: str, quantized: bool, what: str):
-    """Hold both kernels against their plain versions on one input.
+def compare_b1_b2(xy0, valid, phi, *, cam, mode: str, quantized: bool, what: str,
+                  band_rows: int | None = None):
+    """Hold both kernels against their plain versions on one input, B1 with
+    `band_rows` rows a band (None: its band plan), each launched once.
 
     Returns (B1 max abs error, B2 max abs error)."""
     import torch
 
+    from repro_torch.kernels import cuda
     from repro_torch.kernels.backproject_vote.kernel import backproject_vote_cuda
     from repro_torch.kernels.backproject_vote.ref import backproject_vote_detect_ref
     from repro_torch.kernels.local_max.kernel import depth_argmax_cuda
     from repro_torch.kernels.local_max.ref import depth_argmax_ref
 
+    before = dict(cuda.launch_counts)
     dsi = backproject_vote_cuda(xy0[..., 0], xy0[..., 1], valid, phi, cx=cam.cx,
                                 cy=cam.cy, w=cam.width, h=cam.height, mode=mode,
-                                quantized=quantized)
+                                quantized=quantized, band_rows=band_rows)
     conf, zf = depth_argmax_cuda(dsi)
     torch.cuda.synchronize()
+    for name in ("backproject_vote", "depth_argmax"):
+        assert cuda.launch_counts[name] == before.get(name, 0) + 1, (what, name)
     dsi_r, conf_r, zf_r = backproject_vote_detect_ref(
         xy0, valid, phi, cx=cam.cx, cy=cam.cy, w=cam.width, h=cam.height,
         mode=mode, quantized=quantized)
@@ -320,11 +348,11 @@ def compare_b1_b2(xy0, valid, phi, *, cam, mode: str, quantized: bool, what: str
     return err1, err2
 
 
-def kernel_cases_input(rng, w: int, h: int):
-    """The random case: S=2, F=4, E=1024, Nz=128, one fully padded frame."""
+def kernel_cases_input(rng, w: int, h: int, nz: int = 128):
+    """The random case: S=2, F=4, E=1024, Nz planes, one fully padded frame."""
     import numpy as np
 
-    s, f, e, nz = 2, 4, 1024, 128
+    s, f, e = 2, 4, 1024
     xy0 = rng.uniform((-8, -8), (w + 8, h + 8), (s, f, e, 2)).astype(np.float32)
     valid = rng.random((s, f, e)) > 0.2
     valid[1, 2] = False  # one fully padded frame
@@ -348,36 +376,7 @@ def kernel_cases(cam, dev) -> None:
                                        quantized=quantized, what=what)
             log(f"  {what}: ok (sweep max abs err {err1:.3g}, argmax {err2:.3g})")
 
-    # boundary grid: alpha = 1, beta = 0, so plane coords = canonical coords
-    specials = np.array([
-        [w - 1.0, h - 1.0], [w - 1.0, 0.0], [0.0, h - 1.0],
-        [w - 0.5, h - 0.5], [w - 1.5, h - 1.5], [0.5, 0.5], [-0.5, -0.5],
-        [-0.51, 7.0], [0.49, 0.51], [w + 100.0, 3.0], [3.0, h + 100.0],
-        [7.25, 7.75], [w - 1.25, h - 1.75], [13.5, 2.5], [2.5, 13.5],
-        [0.0, 0.0], [np.nan, 5.0], [5.0, np.inf], [-np.inf, 5.0],
-        [255.5, 3.0], [3.0, 255.5], [-1e30, 1e30],
-    ], dtype=np.float32)
-    f, nz = 4, 8
-    xy0 = np.tile(specials[None, None], (1, f, 1, 1))
-    valid = np.ones(xy0.shape[:-1], bool)
-    valid[0, 3] = False  # fully padded frame
-    phi = np.concatenate([np.ones((1, f, nz, 1)), np.zeros((1, f, nz, 2))],
-                         -1).astype(np.float32)
-    args = [torch.from_numpy(a).to(dev) for a in (xy0, valid, phi)]
-    for mode in ("nearest", "bilinear"):
-        for quantized in (False, True):
-            what = f"boundary {mode} quantized={quantized}"
-            compare_b1_b2(*args, cam=cam, mode=mode, quantized=quantized, what=what)
-            log(f"  {what}: ok")
-    # non-finite coefficients as well as coordinates
-    phi_bad = phi.copy()
-    phi_bad[0, 1, 2, 0] = np.nan
-    phi_bad[0, 2, 5, 1] = np.inf
-    args[2] = torch.from_numpy(phi_bad).to(dev)
-    for quantized in (False, True):
-        what = f"non-finite phi nearest quantized={quantized}"
-        compare_b1_b2(*args, cam=cam, mode="nearest", quantized=quantized, what=what)
-        log(f"  {what}: ok")
+    boundary_cases(cam, dev)
 
     # the sweep kernel's edges: ring stages, padding, phi window
     for seed, (s, f, e, nz, pw, ph, what) in enumerate(B1_EDGE_CASES):
@@ -394,6 +393,91 @@ def kernel_cases(cam, dev) -> None:
                 compare_b1_b2(*args, cam=plane, mode=mode, quantized=quantized,
                               what=f"{label} {mode} quantized={quantized}")
         log(f"  {label}: ok in both modes, float and quantized")
+
+
+def boundary_cases(cam, dev) -> None:
+    """The boundary grid on `cam`'s plane: events on w-1/h-1, half-integer
+    coords, fully padded frames, non-finite coords and coefficients."""
+    import numpy as np
+    import torch
+
+    w, h = cam.width, cam.height
+    # boundary grid: alpha = 1, beta = 0, so plane coords = canonical coords
+    specials = np.array([
+        [w - 1.0, h - 1.0], [w - 1.0, 0.0], [0.0, h - 1.0],
+        [w - 0.5, h - 0.5], [w - 1.5, h - 1.5], [0.5, 0.5], [-0.5, -0.5],
+        [-0.51, 7.0], [0.49, 0.51], [w + 100.0, 3.0], [3.0, h + 100.0],
+        [7.25, 7.75], [w - 1.25, h - 1.75], [13.5, 2.5], [2.5, 13.5],
+        [0.0, 0.0], [np.nan, 5.0], [5.0, np.inf], [-np.inf, 5.0],
+        [255.5, 3.0], [3.0, 255.5], [-1e30, 1e30],
+    ], dtype=np.float32)
+    # rows either side of every edge of the plane's row bands
+    rows = band_rows_of(w, h)
+    n_bands = -(-h // rows)
+    edges = [b * rows + d for b in range(1, n_bands) for d in (-1.0, -0.5, 0.25)]
+    specials = np.concatenate([specials, np.array([[w / 3, y] for y in edges],
+                                                  np.float32).reshape(-1, 2)])
+    f, nz = 4, 8
+    xy0 = np.tile(specials[None, None], (1, f, 1, 1))
+    valid = np.ones(xy0.shape[:-1], bool)
+    valid[0, 3] = False  # fully padded frame
+    phi = np.concatenate([np.ones((1, f, nz, 1)), np.zeros((1, f, nz, 2))],
+                         -1).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (xy0, valid, phi)]
+    plan = f"{w}x{h}, {n_bands} band(s) of {rows} rows"
+    for mode in ("nearest", "bilinear"):
+        for quantized in (False, True):
+            what = f"boundary {mode} quantized={quantized} ({plan})"
+            compare_b1_b2(*args, cam=cam, mode=mode, quantized=quantized, what=what)
+            log(f"  {what}: ok")
+    # non-finite coefficients as well as coordinates
+    phi_bad = phi.copy()
+    phi_bad[0, 1, 2, 0] = np.nan
+    phi_bad[0, 2, 5, 1] = np.inf
+    args[2] = torch.from_numpy(phi_bad).to(dev)
+    for quantized in (False, True):
+        what = f"non-finite phi nearest quantized={quantized} ({plan})"
+        compare_b1_b2(*args, cam=cam, mode="nearest", quantized=quantized, what=what)
+        log(f"  {what}: ok")
+
+
+def band_rows_of(w: int, h: int) -> int:
+    """B1's band height for a w x h plane on this card."""
+    import torch
+
+    from repro_torch.kernels.backproject_vote.kernel import band_plan
+
+    return band_plan(w, h, torch.cuda.get_device_properties(0).shared_memory_per_block_optin)[0]
+
+
+def band_cases(dev) -> None:
+    """Phase 3b: B1 at sizes that need row bands, and forced bands at
+    240x180, against the plain versions; the band plan at each size."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.camera import CAMERAS
+    from repro_torch.kernels.backproject_vote.kernel import kernel_smem_bytes, smem_bytes
+
+    for w, h, rows in B1_BAND_CASES:
+        plane = types.SimpleNamespace(width=w, height=h, cx=w / 2 + 0.3, cy=h / 2 - 0.2)
+        args = [torch.from_numpy(a).to(dev) for a in
+                kernel_cases_input(np.random.default_rng(w + h + (rows or 0)), w, h,
+                                   B1_BAND_PLANES)]
+        planned = band_rows_of(w, h)
+        used = rows or planned
+        assert kernel_smem_bytes(w, used) == smem_bytes(w, used), (w, used)
+        plan = (f"{w}x{h}: {-(-h // used)} bands of {used} rows "
+                f"({'forced' if rows else 'planned'}; the plan: {planned}), "
+                f"{smem_bytes(w, used)} B of shared memory per CTA")
+        for mode in ("nearest", "bilinear"):
+            for quantized in (False, True):
+                err1, _ = compare_b1_b2(*args, cam=plane, mode=mode, quantized=quantized,
+                                        what=f"bands {plan} {mode} quantized={quantized}",
+                                        band_rows=rows)
+                log(f"  bands {plan} {mode} quantized={quantized}: ok "
+                    f"(sweep max abs err {err1:.3g})")
+    boundary_cases(CAMERAS["davis346"], dev)
 
 
 def flash_inputs(g, dev, dtype, b, hq, hkv, sq, skv, d, layout: str):
@@ -762,8 +846,177 @@ def main_bucket(cam, dsi_cfg, frames, opts):
         SE3(batch.ref_R[:, None], batch.ref_t[:, None]), planes,
         planes[dsi_cfg.num_planes // 2])
     phi = torch.stack([geoms.phi.alpha, geoms.phi.beta_x, geoms.phi.beta_y], -1)
-    return canonical_inputs(batch.xy, batch.valid.bool(), geoms.H, phi,
-                            quantized=opts.quantized, frame_valid=batch.frame_valid.bool())
+    return canonical_inputs(batch.xy, batch.valid, geoms.H, phi,
+                            quantized=opts.quantized, frame_valid=batch.frame_valid)
+
+
+def sweep_bound(s: int, c: int, e: int, nz: int, w: int, h: int, n_valid: int):
+    """B1's least ms for S segments of C frames of E events onto Nz planes
+    of w x h, int16 store: x0, y0 (float32) and the bool mask per event,
+    phi, the int16 DSI; 9 float32 operations per valid (event, plane)."""
+    return emvs_bound(9 * s * c * e + 12 * s * c * nz + 2 * s * nz * h * w,
+                      B1_OPS_PER_PROJECTION * n_valid * nz)
+
+
+def davis346_phase(card: str, scene, main_cfg, opts) -> dict:
+    """Phase 4b: the main path on a DAVIS346 (346x260, two row bands in
+    B1), with phase 4's scene, trajectory and options: kernel == scatter
+    bitwise, float and quantized; AbsRel on the float datapath (Table 1's
+    8-bit plane coordinates park off-range columns at 255, a real column
+    past 256 pixels, so the quantized AbsRel is logged, not held); the
+    warm wall; B1's device time at the bucket with most segments."""
+    import torch
+
+    from repro_torch.core.camera import CAMERAS
+    from repro_torch.core.dsi import DSIConfig
+    from repro_torch.core.pipeline import run_emvs
+    from repro_torch.events.simulator import absrel, ground_truth_depth
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.backproject_vote.kernel import backproject_vote_cuda
+
+    cam = CAMERAS["davis346"]
+    dsi_cfg = DSIConfig.for_camera(cam, num_planes=main_cfg.num_planes,
+                                   z_min=main_cfg.z_min, z_max=main_cfg.z_max)
+    _, frames = emvs_frames(cam, scene)
+    absrels, launches = {}, {}
+    for quantized in (False, True):
+        o = dataclasses.replace(opts, quantized=quantized)
+        torch.cuda.synchronize()
+        cuda.launch_counts.clear()
+        result = run_emvs(cam, dsi_cfg, frames, o)
+        torch.cuda.synchronize()
+        launches[quantized] = dict(cuda.launch_counts)
+        for name in ("backproject_vote", "depth_argmax"):
+            assert launches[quantized].get(name, 0) > 0, f"DAVIS346 never launched {name}"
+        plain = run_emvs(cam, dsi_cfg, frames, dataclasses.replace(o, formulation="scatter"))
+        assert len(plain.segments) == len(result.segments) >= 2
+        errs = []
+        for k, (seg, ref) in enumerate(zip(result.segments, plain.segments)):
+            what = f"DAVIS346 quantized={quantized} segment {k}"
+            assert seg.frame_range == ref.frame_range
+            assert seg.depth_map.depth.shape == (cam.height, cam.width)
+            assert bool(torch.isfinite(seg.depth_map.depth).all())
+            # the kernel formulation stores float32 votes on the float
+            # datapath, scatter int32 counts (exact in float32)
+            assert_equal(seg.dsi.float(), ref.dsi.float(), f"{what}: kernel vs scatter dsi")
+            assert_equal(seg.depth_map.depth, ref.depth_map.depth, f"{what}: depth")
+            assert_equal(seg.depth_map.mask, ref.depth_map.mask, f"{what}: mask")
+            gt, gtm = ground_truth_depth(cam, scene, seg.T_w_ref)
+            errs.append(float(absrel(seg.depth_map.depth, seg.depth_map.mask, gt, gtm)))
+        absrels[quantized] = sum(errs) / len(errs)
+        log(f"DAVIS346 {cam.width}x{cam.height} quantized={quantized}: "
+            f"{frames.xy.shape[0]} frames -> {len(result.segments)} segments, launches "
+            f"{launches[quantized]}; kernel == scatter bitwise on dsi, depth, mask; "
+            f"AbsRel per segment {[round(x, 4) for x in errs]}, mean {absrels[quantized]:.4f}")
+    assert absrels[False] < 0.25, f"DAVIS346 float mean AbsRel {absrels[False]} too high"
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_emvs(cam, dsi_cfg, frames, opts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    log_breakdown(card, "DAVIS346 run_emvs", lambda: run_emvs(cam, dsi_cfg, frames, opts))
+
+    xy0, valid, phi = main_bucket(cam, dsi_cfg, frames, opts)
+    s, c, e = valid.shape
+    nz, h, w = dsi_cfg.shape
+    shape_note = f"S={s} C={c} E={e} Nz={nz} {w}x{h}"
+    compare_b1_b2(xy0, valid, phi, cam=cam, mode="nearest", quantized=True,
+                  what=f"DAVIS346 bucket {shape_note}")
+    x0, y0 = xy0[..., 0].contiguous(), xy0[..., 1].contiguous()
+    device_ms = graph_ms(lambda: backproject_vote_cuda(x0, y0, valid, phi, cx=cam.cx,
+                                                       cy=cam.cy, w=w, h=h, quantized=True))
+    bound, by = sweep_bound(s, c, e, nz, w, h, int(valid.sum()))
+    rows = band_rows_of(w, h)
+    n_bands = -(-h // rows)
+    log(f"[{card}] DAVIS346 run_emvs (kernel, nearest, quantized) warm wall "
+        f"{1e3 * wall:.1f} ms median of {len(walls)}; backproject_vote at {shape_note} "
+        f"int16 in {n_bands} bands of {rows} rows: device {device_ms:.4f} ms (CUDA graph of "
+        f"{GRAPH_CALLS}), bound {bound:.4f} ms ({by}), bound share {bound / device_ms:.3f}")
+    return {"device_ms": device_ms, "bound_ms": bound, "n_bands": n_bands, "wall_ms": 1e3 * wall,
+            "absrel": absrels, "launches": launches[True], "shape": shape_note}
+
+
+def paper_tables(card: str) -> dict:
+    """Phase 4c: the paper's Fig 4a, 4b and 7a at the reference's sizes and
+    Table 3, on the card. Each kernel row equals its matmul row (the
+    benchmarks raise otherwise, and it is asserted again here) and every
+    figure's claim holds."""
+    import torch
+
+    from repro_torch.benchmarks import fig4a_voting, fig4b_quant, fig7a_accuracy, table3_runtime
+    from repro_torch.kernels import cuda
+
+    torch.cuda.synchronize()
+    cuda.launch_counts.clear()
+    figs = {"4a": fig4a_voting.run(), "4b": fig4b_quant.run(), "7a": fig7a_accuracy.run()}
+    torch.cuda.synchronize()
+    launches = dict(cuda.launch_counts)
+    for name in ("backproject_vote", "depth_argmax"):
+        assert launches.get(name, 0) > 0, f"the paper tables never launched {name}"
+    for fig, out in figs.items():
+        log(f"[{card}] Fig {fig} AbsRel on {out['device']}:")
+        for seq, row in out["rows"].items():
+            for key, value in row.items():
+                if key.endswith("_kernel"):
+                    assert value == row[key[:-len("_kernel")]], (fig, seq, key)
+            log(f"  {seq:20s} " + "  ".join(f"{k} {v:.4f}" for k, v in row.items()))
+        gap_key = next(k for k in out if k.startswith("max_"))
+        log(f"  {gap_key} {out[gap_key]:.4f} (paper "
+            f"{out.get('paper_claim_max_gap', out.get('paper_claim_max_diff'))}), "
+            f"claim_ok {out['claim_ok']}; kernel rows == matmul rows")
+        assert out["claim_ok"], f"Fig {fig}: the paper's claim does not hold"
+    log(f"paper tables: launches {launches}")
+    t3 = table3_runtime.run()
+    log(f"[{card}] Table 3 per 1024-event frame ({t3['timer']}):")
+    for name in ("software_scatter", "matmul", "b1_eventor_analogue"):
+        r = t3[name]
+        log(f"  {name:22s} P(Z0) {r['P(Z0) us']:.3f} us, P(Z0->Zi)&R "
+            f"{r['P(Z0->Zi)&R us']:.3f} us, normal {r['normal Mev/s']:.1f} Mev/s, "
+            f"key {r['key Mev/s']:.1f} Mev/s")
+    return {"figs": figs, "table3": t3, "launches": launches}
+
+
+def examples_phase(card: str) -> None:
+    """Phase 4d: the two examples on the card at reduced steps. The merged
+    map's outlier filter keeps exactly the points the filter keeps on the
+    CPU from the same cloud, and the kernel variant's AbsRel equals the
+    matmul variant's."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.pointcloud import PointCloud, radius_outlier_filter
+    from repro_torch.examples import emvs_reconstruction, quickstart
+    from repro_torch.kernels import cuda
+
+    torch.cuda.synchronize()
+    cuda.launch_counts.clear()
+    errs = quickstart.main(["--steps", "24"])
+    launches = dict(cuda.launch_counts)
+    assert launches.get("backproject_vote", 0) > 0, "quickstart never launched B1"
+    assert errs and all(0 < e < 0.25 for e in errs), errs
+    with tempfile.TemporaryDirectory() as tmp:
+        for camera in ("davis240", "davis346"):
+            cuda.launch_counts.clear()
+            res = emvs_reconstruction.main(["--camera", camera, "--steps", "24",
+                                            "--out", os.path.join(tmp, f"{camera}.npz")])
+            launches = dict(cuda.launch_counts)
+            assert launches.get("backproject_vote", 0) > 0, "the example never launched B1"
+            kernel = next(k for k in res["absrel"] if k.startswith("CUDA kernels"))
+            assert res["absrel"][kernel] == res["absrel"][emvs_reconstruction.MERGED_VARIANT]
+            merged, filtered = res["merged"], res["filtered"]
+            assert filtered.valid.is_cuda
+            on_cpu = radius_outlier_filter(PointCloud(*(t.cpu() for t in merged)),
+                                           radius=0.08, min_neighbors=2)
+            assert_equal(filtered.valid.cpu(), on_cpu.valid, f"{camera}: filtered map")
+            assert 0 < int(filtered.valid.sum()) < int(merged.valid.sum())
+            log(f"[{card}] emvs_reconstruction {camera}: launches {launches}; merged map "
+                f"{int(merged.valid.sum())} points, {int(filtered.valid.sum())} after the "
+                f"filter, the same points as the CPU's filter")
 
 
 def emvs_bound(nbytes: int, nops: int) -> tuple[float, str]:
@@ -822,6 +1075,8 @@ def main() -> int:
     cam, dsi_cfg, opts, scene = emvs_config()
     log("kernel vs plain:")
     kernel_cases(cam, dev)
+    log("row bands, kernel vs plain:")
+    band_cases(dev)
 
     # 4. the main path at the paper's width
     torch.cuda.synchronize()
@@ -871,9 +1126,12 @@ def main() -> int:
     err1, err2 = compare_b1_b2(xy0, valid, phi, cam=cam, mode="nearest",
                                quantized=True, what=f"main-path bucket {shape_note}")
     log(f"main-path bucket {shape_note}: kernels bitwise with plain versions")
-    smem = b1_kernel.smem_bytes(w, h)
-    assert b1_kernel.kernel_smem_bytes(w, h) == smem, "the wrapper's shared-memory plan"
-    log(f"backproject_vote: {smem} B of shared memory per CTA")
+    band_rows = band_rows_of(w, h)
+    n_bands = -(-h // band_rows)
+    smem = b1_kernel.smem_bytes(w, band_rows)
+    assert b1_kernel.kernel_smem_bytes(w, band_rows) == smem, "the wrapper's shared-memory plan"
+    log(f"backproject_vote: {n_bands} band(s) of {band_rows} rows, {smem} B of shared "
+        f"memory per CTA")
 
     timed = {}
     for label, rows in (("main", slice(None)), ("S=1", slice(0, 1))):
@@ -891,10 +1149,7 @@ def main() -> int:
             return depth_argmax_cuda(stored)
 
         sb = v.shape[0]
-        # x0, y0 (float32) and the bool mask per event, phi, the int16 DSI
-        b1_bound, b1_by = emvs_bound(
-            9 * sb * c * e + 12 * sb * c * nz + 2 * sb * nz * h * w,
-            B1_OPS_PER_PROJECTION * int(v.sum()) * nz)
+        b1_bound, b1_by = sweep_bound(sb, c, e, nz, w, h, int(v.sum()))
         b2_bound, b2_by = emvs_bound(2 * sb * nz * h * w + 8 * sb * h * w,
                                      B2_OPS_PER_VOXEL * sb * nz * h * w)
         row = {"S": sb, "b1_device_ms": graph_ms(b1), "b1_eager_ms": cuda_ms(b1, reps=7, inner=5),
@@ -937,6 +1192,13 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s")
     log_breakdown(card, "run_emvs", lambda: run_emvs(cam, dsi_cfg, frames, opts))
 
+    # 4b-4d. DAVIS346, the paper's tables, the examples
+    t0 = time.perf_counter()
+    d346 = davis346_phase(card, scene, dsi_cfg, opts)
+    paper_tables(card)
+    examples_phase(card)
+    log(f"DAVIS346, paper tables and examples: {time.perf_counter() - t0:.1f} s")
+
     # 6. the flash-attention kernel vs its plain version
     log("flash attention kernel vs plain:")
     b3_err = flash_cases(dev)
@@ -956,8 +1218,11 @@ def main() -> int:
          "bound_ms": main_row["b1_bound_ms"], "bound_by": main_row["b1_bound_by"],
          "library_ms": None, "device_ms": main_row["b1_device_ms"],
          "device_ms_s1": timed["S=1"]["b1_device_ms"], "smem_bytes": smem,
+         "n_bands": n_bands, "device_ms_davis346": d346["device_ms"],
+         "bound_ms_davis346": d346["bound_ms"], "n_bands_davis346": d346["n_bands"],
          "bulk_copy_instructions": n_bulk,
-         "shape": f"{shape_note} int16; ms host-inclusive eager, device_ms a CUDA graph"},
+         "shape": f"{shape_note} int16; ms host-inclusive eager, device_ms a CUDA graph",
+         "shape_davis346": f"{d346['shape']} int16, device time"},
         {"name": "depth_argmax", "route": "cuda",
          "source": "src/repro_torch/csrc/local_max.cu",
          "replaces": "src/repro/kernels/local_max/kernel.py:74",

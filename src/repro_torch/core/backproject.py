@@ -16,6 +16,7 @@ from repro_torch.core.geometry import (
     canonical_homography,
     propagate_to_planes,
     proportional_coeffs,
+    relative_pose_ref_from_cam,
 )
 
 Tensor = torch.Tensor
@@ -36,7 +37,7 @@ def frame_geometry(
     cam: CameraModel, T_w_ref: SE3, T_w_cam: SE3, z0: Tensor, planes: Tensor
 ) -> FrameGeometry:
     """H_Z0 and phi for one frame, or a batch (leading dims of T_w_cam)."""
-    T_ref_cam = T_w_ref.inverse().compose(T_w_cam)
+    T_ref_cam = relative_pose_ref_from_cam(T_w_ref, T_w_cam)
     H = canonical_homography(cam, T_ref_cam, z0)
     phi = proportional_coeffs(cam, T_ref_cam, z0, planes)
     return FrameGeometry(H, phi)

@@ -56,6 +56,16 @@ class CameraModel:
         return any(abs(v) > 0 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
 
 
+# The sensors the examples and `chip_smoke.py` run: the paper's DAVIS240C,
+# and DAVIS346 with the intrinsics of MVSEC's indoor_flying left camera and
+# no distortion (the simulator renders undistorted events).
+CAMERAS = {
+    "davis240": CameraModel(),
+    "davis346": CameraModel(width=346, height=260, fx=226.38, fy=226.15, cx=173.65,
+                            cy=133.73),
+}
+
+
 def project(cam: CameraModel, points_cam: Tensor) -> Tensor:
     """3D points in the camera frame (..., 3) -> pixel coords (..., 2)."""
     z = points_cam[..., 2]

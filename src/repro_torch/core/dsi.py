@@ -48,6 +48,10 @@ class DSIConfig:
         return DSIConfig(cam.width, cam.height, num_planes, z_min, z_max, inverse_depth)
 
 
+def zeros(cfg: DSIConfig, dtype=DSI_ACCUM_DTYPE, device=None) -> Tensor:
+    return torch.zeros(cfg.shape, dtype=dtype, device=device)
+
+
 def to_storage(dsi: Tensor) -> Tensor:
     """Accumulator -> int16 storage: clip to the int16 range, then convert
     (float values truncate toward zero, as XLA's conversion does)."""
@@ -66,3 +70,25 @@ def storage_roundtrip(dsi: Tensor) -> Tensor:
     reference returns it for every accumulator dtype)."""
     return from_storage(to_storage(dsi))
 
+
+
+def _fraction(hit: Tensor) -> Tensor:
+    """The float32 mean of a bool tensor as the reference takes it: the
+    count (exact in float32 below 2^24 elements) over the float32 size."""
+    return hit.sum().to(torch.float32) / torch.tensor(hit.numel(), dtype=torch.float32,
+                                                      device=hit.device)
+
+
+def saturation_fraction(dsi: Tensor) -> Tensor:
+    """Fraction of voxels that would clip at int16: the paper's claim that
+    16 bits suffice, asked before the store."""
+    info = torch.iinfo(DSI_STORE_DTYPE)
+    return _fraction((dsi > info.max) | (dsi < info.min))
+
+
+def store_saturation_fraction(dsi: Tensor) -> Tensor:
+    """Fraction of voxels AT the int16 store limits (inclusive): the same
+    question asked of a volume that was already stored, where
+    `saturation_fraction` is zero by construction."""
+    info = torch.iinfo(DSI_STORE_DTYPE)
+    return _fraction((dsi >= info.max) | (dsi <= info.min))

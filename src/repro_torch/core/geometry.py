@@ -157,6 +157,12 @@ def depth_planes(z_min: float, z_max: float, num: int, inverse_depth: bool = Tru
     return _linspace(z_min, z_max, num, device)
 
 
+def relative_pose_ref_from_cam(T_w_ref: SE3, T_w_cam: SE3) -> SE3:
+    """T_ref_cam: maps points in the current camera's frame to the
+    reference frame."""
+    return T_w_ref.inverse().compose(T_w_cam)
+
+
 def canonical_homography(cam: CameraModel, T_ref_cam: SE3, z0: Tensor) -> Tensor:
     """H_Z0 (..., 3, 3): current-camera pixels -> reference pixels via z = Z0.
 
@@ -220,3 +226,11 @@ def propagate_to_planes(
     y_i = torch.addcmul(phi.beta_y[..., :, None], alpha, yc) + cam.cy
     return x_i, y_i
 
+
+
+def pose_distance(a: SE3, b: SE3) -> Tensor:
+    """Translation distance between two poses (the key-frame criterion):
+    the norm of a.t - b.t, its squares summed as XLA:CPU's reduction sums
+    them (x * x, then fused multiply-adds of y and z)."""
+    d = a.t - b.t
+    return torch.sqrt(_dot3(d[..., 0], d[..., 0], d[..., 1], d[..., 1], d[..., 2], d[..., 2]))

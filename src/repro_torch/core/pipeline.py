@@ -77,11 +77,17 @@ class SegmentBatch(NamedTuple):
 
     Padded frame slots repeat the segment's last real frame so their
     geometry stays finite; `frame_valid` zeroes their vote weight.
+
+    `valid` and `frame_valid` are bool masks when every weight is 1 or 0
+    (`pad_segments`, `process_segment`, and `interop.segment_batch_from_numpy`
+    for 1/0 inputs). Float32 weights are voted as given by the scatter and
+    matmul formulations, as the reference votes them; the kernel
+    formulation counts each valid event as 1 and refuses them.
     """
 
     xy: Tensor  # (S, C, E, 2) rectified event coords
-    valid: Tensor  # (S, C, E) float32 1/0 per-event validity (a mask)
-    frame_valid: Tensor  # (S, C) float32 1 for real frames, 0 for padding
+    valid: Tensor  # (S, C, E) bool mask, or float32 vote weights
+    frame_valid: Tensor  # (S, C) bool: real frames True, padding False (or float32 1/0)
     poses_R: Tensor  # (S, C, 3, 3)
     poses_t: Tensor  # (S, C, 3)
     ref_R: Tensor  # (S, 3, 3) reference (key-frame) pose per segment
@@ -170,10 +176,16 @@ def bucket_capacity(num_frames: int, minimum: int = SEGMENT_BUCKET_MIN) -> int:
     return max(minimum, -(-num_frames // minimum) * minimum)
 
 
+def _weights(valid: Tensor) -> Tensor:
+    """Event validity as `SegmentBatch` carries it: a bool mask stays one,
+    any other dtype becomes float32 weights."""
+    return valid if valid.dtype == torch.bool else valid.to(torch.float32)
+
+
 def pad_segments(frames: EventFrames, segs: Sequence[tuple[int, int]],
                  capacity: int) -> SegmentBatch:
     """Gather same-bucket segments into one padded SegmentBatch, on the
-    frames' device."""
+    frames' device. Bool event masks stay bool; `frame_valid` is bool."""
     if not segs:
         raise ValueError(
             "pad_segments needs at least one segment: an empty segment "
@@ -184,13 +196,13 @@ def pad_segments(frames: EventFrames, segs: Sequence[tuple[int, int]],
         if not 0 < n <= capacity:
             raise ValueError(f"segment {(start, end)} does not fit capacity {capacity}")
         idx_rows.append(np.minimum(np.arange(start, start + capacity), end - 1))
-        fv_rows.append((np.arange(capacity) < n).astype(np.float32))
+        fv_rows.append(np.arange(capacity) < n)
     dev = frames.xy.device
     idx = torch.from_numpy(np.stack(idx_rows)).to(dev)  # (S, C) clamped frame indices
     ref = torch.tensor([s for s, _ in segs], dtype=torch.int64, device=dev)
     return SegmentBatch(
         xy=frames.xy[idx],
-        valid=frames.valid[idx].to(torch.float32),
+        valid=_weights(frames.valid[idx]),
         frame_valid=torch.from_numpy(np.stack(fv_rows)).to(dev),
         poses_R=frames.poses.R[idx],
         poses_t=frames.poses.t[idx],
@@ -268,6 +280,14 @@ def precompute_batch_geometry(
     return frame_geometry(cam, T_w_ref, SE3(poses_R, poses_t), z0, planes)
 
 
+def precompute_segment_geometry(
+    cam: CameraModel, frames: EventFrames, T_w_ref: SE3, planes: Tensor, z0: Tensor
+) -> FrameGeometry:
+    """H/phi for all frames of a segment (ARM-side work in the paper)."""
+    return precompute_batch_geometry(cam, frames.poses.R, frames.poses.t,
+                                     T_w_ref, planes, z0)
+
+
 def sweep_segment_batch(
     cam: CameraModel,
     dsi_cfg: DSIConfig,
@@ -292,11 +312,12 @@ def sweep_segment_batch(
     if opts.formulation == "kernel":
         phi = torch.stack([geoms.phi.alpha, geoms.phi.beta_x, geoms.phi.beta_y],
                           dim=-1)  # (S, C, Nz, 3)
-        # the batch's 1/0 weights come from bool masks (`pad_segments`)
+        # the kernel counts each valid event as 1: `canonical_inputs`
+        # refuses float weights, which may be fractional, by their dtype
+        # (no host sync)
         dsi, conf, zf = backproject_vote_frames(
-            batch.xy, batch.valid.bool(), geoms.H, phi, cam=cam, dsi_cfg=dsi_cfg,
-            mode=opts.voting, quantized=opts.quantized,
-            frame_valid=batch.frame_valid.bool())
+            batch.xy, batch.valid, geoms.H, phi, cam=cam, dsi_cfg=dsi_cfg,
+            mode=opts.voting, quantized=opts.quantized, frame_valid=batch.frame_valid)
         if opts.quantized:
             dsi = dsi_lib.from_storage(dsi)
         dm = detect_and_filter_from(
@@ -348,9 +369,8 @@ def process_segment(
     num_frames = frames.xy.shape[0]
     batch = SegmentBatch(
         xy=frames.xy[None],
-        valid=frames.valid.to(torch.float32)[None],
-        frame_valid=torch.ones((1, num_frames), dtype=torch.float32,
-                               device=frames.xy.device),
+        valid=_weights(frames.valid)[None],
+        frame_valid=torch.ones((1, num_frames), dtype=torch.bool, device=frames.xy.device),
         poses_R=frames.poses.R[None],
         poses_t=frames.poses.t[None],
         ref_R=T_w_ref.R[None],

@@ -8,10 +8,15 @@
 // the same pass runs as a second launch over the stored DSI
 // (`local_max.cu`).
 //
-// Layout: one CTA per (depth plane, segment), the whole h*w plane
-// accumulator in dynamic shared memory (DAVIS240: 172,800 B). Every plane
-// of a segment reads the same F*E events, so the events are streamed, not
-// loaded per thread:
+// Layout: one CTA per (depth plane, segment, row band), the band's
+// accumulator in dynamic shared memory. The wrapper's band plan
+// (`kernel.py::band_plan`) takes the fewest bands that fit beside the
+// ring: DAVIS240's whole 240x180 plane is one band (172,800 B), DAVIS346's
+// 346x260 two bands of 130 rows. Every band CTA of a segment streams all of
+// its F*E events through its own ring and keeps only the votes that land in
+// its rows, so n_bands bands cost n_bands times the event reads and
+// projections. Every plane of a segment reads the same events, so the
+// events are streamed, not loaded per thread:
 //
 //   * warp 31 is the producer: one lane streams the segment's flat x0 and
 //     y0 (float32) and validity (one byte, 0/1) through a two-stage ring
@@ -30,9 +35,16 @@
 //     int32 counts added with integer shared atomics (an f32 shared
 //     atomicAdd is a compare-and-swap loop on sm_90, ATOMS.CAST.SPIN);
 //     bilinear adds f32;
-//   * the consumers zero the plane while the first stages arrive; after
+//   * the consumers zero the band while the first stages arrive; after
 //     the vote every thread stores one element at a time (int16
 //     clamp-then-truncate, or f32).
+//
+// Bands: the column bounds test stays on the logical w; the row test is
+// "in this band", which implies the logical 0 <= y < h since the bands
+// tile [0, h). A nearest vote lands at (y - r0) * w + x. A bilinear vote
+// passes the full w/h bounds test first, then adds its row-yf pair and
+// its row-yf+1 pair each only when that row is in the band, so a vote
+// that straddles two bands is split between their CTAs.
 //
 // No state crosses CTAs, so the CTAs may run in any order.
 //
@@ -148,10 +160,11 @@ __device__ __forceinline__ int quantized_pixel(float c) {
   return (c < -0.5f || c > 255.5f) ? 255 : in_range;
 }
 
-// The pixel (y * w + x) a nearest vote lands on, or -1 off the plane:
-// floor(x + 0.5) of the sanitized coordinate (|x| <= 1e6), converted once.
+// The band pixel ((y - r0) * w + x) a nearest vote lands on, or -1 off
+// the plane or outside rows [r0, r0 + rows): floor(x + 0.5) of the
+// sanitized coordinate (|x| <= 1e6), converted once.
 template <bool kQuantized>
-__device__ __forceinline__ int nearest_pixel(float xi, float yi, int w, int h) {
+__device__ __forceinline__ int nearest_pixel(float xi, float yi, int w, int r0, int rows) {
   int x, y;
   if (kQuantized) {
     x = quantized_pixel(xi);
@@ -160,12 +173,14 @@ __device__ __forceinline__ int nearest_pixel(float xi, float yi, int w, int h) {
     x = __float2int_rd(sanitize(xi) + 0.5f);
     y = __float2int_rd(sanitize(yi) + 0.5f);
   }
-  return ((unsigned)x < (unsigned)w && (unsigned)y < (unsigned)h) ? y * w + x : -1;
+  y -= r0;
+  return ((unsigned)x < (unsigned)w && (unsigned)y < (unsigned)rows) ? y * w + x : -1;
 }
 
-// The bilinear vote of weight 1 at (xi, yi): four f32 shared atomics.
+// The bilinear vote of weight 1 at (xi, yi): four f32 shared atomics, of
+// which those in rows [r0, r0 + rows) land in this band.
 __device__ __forceinline__ void bilinear_vote(float* acc, float xi, float yi, float wmax,
-                                              float hmax, int w) {
+                                              float hmax, int w, int r0, int rows) {
   xi = sanitize(xi);
   yi = sanitize(yi);
   const float xf = floorf(xi);
@@ -178,11 +193,16 @@ __device__ __forceinline__ void bilinear_vote(float* acc, float xi, float yi, fl
     const float ox0 = 1.f - fx;
     const float ox1 = fx;
     const float oy0 = 1.f - fy;
-    const int o = (int)yf * w + (int)xf;
-    atomicAdd(&acc[o], oy0 * ox0);
-    atomicAdd(&acc[o + 1], oy0 * ox1);
-    atomicAdd(&acc[o + w], fy * ox0);
-    atomicAdd(&acc[o + w + 1], fy * ox1);
+    const int y = (int)yf - r0;
+    const int o = y * w + (int)xf;
+    if ((unsigned)y < (unsigned)rows) {
+      atomicAdd(&acc[o], oy0 * ox0);
+      atomicAdd(&acc[o + 1], oy0 * ox1);
+    }
+    if ((unsigned)(y + 1) < (unsigned)rows) {
+      atomicAdd(&acc[o + w], fy * ox0);
+      atomicAdd(&acc[o + w + 1], fy * ox1);
+    }
   }
 }
 
@@ -215,7 +235,8 @@ backproject_vote_kernel(const float* __restrict__ x0,     // (S, F, E)
                         const uint8_t* __restrict__ valid,  // (S, F, E) 0/1
                         const float* __restrict__ phi,    // (S, F, Nz, 3)
                         void* __restrict__ dsi,           // (S, Nz, h, w)
-                        int F, int E, int nz, int w, int h, float cx, float cy) {
+                        int F, int E, int nz, int w, int h, int band_rows, float cx,
+                        float cy) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   float* sphi = reinterpret_cast<float*>(smem + kRingBytes);
@@ -225,8 +246,10 @@ backproject_vote_kernel(const float* __restrict__ x0,     // (S, F, E)
 
   const int z = blockIdx.x;
   const int s = blockIdx.y;
+  const int r0 = blockIdx.z * band_rows;     // the band's first row
+  const int rows = min(band_rows, h - r0);  // and its height
   const int tid = threadIdx.x;
-  const int hw = h * w;
+  const int hw = rows * w;  // the band's pixels
   const int n_ev = F * E;  // E is a multiple of 16
   const int n_stages = (n_ev + kStage - 1) / kStage;
   const uint32_t full0 = smem_u32(&bars[0]);
@@ -260,7 +283,7 @@ backproject_vote_kernel(const float* __restrict__ x0,     // (S, F, E)
       }
     }
   } else {
-    // ---- consumers: zero the plane and stage phi while the first stages
+    // ---- consumers: zero the band and stage phi while the first stages
     // arrive, then vote events c0 + 2 tid and c0 + 2 tid + 1 of every stage.
     // E is even, so a pair never straddles two frames; a frame
     // cursor keeps the pair's (alpha, beta_x, beta_y) in registers
@@ -313,11 +336,11 @@ backproject_vote_kernel(const float* __restrict__ x0,     // (S, F, E)
         const float xi1 = __fmaf_rn(alpha, x.y - cx, beta_x) + cx;
         const float yi1 = __fmaf_rn(alpha, y.y - cy, beta_y) + cy;
         if (kBilinear) {
-          if (m.x) bilinear_vote(acc, xi0, yi0, wmax, hmax, w);
-          if (m.y) bilinear_vote(acc, xi1, yi1, wmax, hmax, w);
+          if (m.x) bilinear_vote(acc, xi0, yi0, wmax, hmax, w, r0, rows);
+          if (m.y) bilinear_vote(acc, xi1, yi1, wmax, hmax, w, r0, rows);
         } else {
-          pix0 = m.x ? nearest_pixel<kQuantized>(xi0, yi0, w, h) : -1;
-          pix1 = m.y ? nearest_pixel<kQuantized>(xi1, yi1, w, h) : -1;
+          pix0 = m.x ? nearest_pixel<kQuantized>(xi0, yi0, w, r0, rows) : -1;
+          pix1 = m.y ? nearest_pixel<kQuantized>(xi1, yi1, w, r0, rows) : -1;
         }
       }
       if (pix0 >= 0) atomicAdd(&iacc[pix0], 1);
@@ -326,11 +349,11 @@ backproject_vote_kernel(const float* __restrict__ x0,     // (S, F, E)
       if ((tid & 31) == 0) mbar_arrive(empty0 + 8 * slot);
     }
   }
-  __syncthreads();  // every vote of this plane is in
+  __syncthreads();  // every vote of this band is in
 
   // one element a thread: the store is bound by the card's write rate, not
   // by its instructions (16-byte stores measured no faster, PERF.md)
-  const long out = ((long)s * nz + z) * hw;
+  const long out = (((long)s * nz + z) * h + r0) * w;
   if (kQuantized) {
     int16_t* d = static_cast<int16_t*>(dsi) + out;
     for (int i = tid; i < hw; i += kThreads)
@@ -342,7 +365,7 @@ backproject_vote_kernel(const float* __restrict__ x0,     // (S, F, E)
 }
 
 using KernelFn = void (*)(const float*, const float*, const uint8_t*, const float*, void*, int,
-                         int, int, int, int, float, float);
+                         int, int, int, int, int, float, float);
 
 KernelFn pick_kernel(int bilinear, int quantized) {
   if (bilinear)
@@ -350,24 +373,25 @@ KernelFn pick_kernel(int bilinear, int quantized) {
   return quantized ? backproject_vote_kernel<false, true> : backproject_vote_kernel<false, false>;
 }
 
-int smem_bytes(int w, int h) { return kFixedBytes + (h * w * 4 + 15) / 16 * 16; }
+int smem_bytes(int w, int rows) { return kFixedBytes + (rows * w * 4 + 15) / 16 * 16; }
 
 }  // namespace
 
-// Dynamic shared memory one CTA takes for a w x h plane.
-extern "C" int backproject_vote_smem_bytes(int w, int h) { return smem_bytes(w, h); }
+// Dynamic shared memory one CTA takes for a band of `rows` rows of a w-wide plane.
+extern "C" int backproject_vote_smem_bytes(int w, int rows) { return smem_bytes(w, rows); }
 
 extern "C" int backproject_vote_launch(const float* x0, const float* y0,
                                        const uint8_t* valid, const float* phi,
                                        void* dsi, int S, int F, int E, int nz,
-                                       int w, int h, float cx, float cy,
+                                       int w, int h, int band_rows, float cx, float cy,
                                        int bilinear, int quantized, void* stream) {
   const KernelFn kernel = pick_kernel(bilinear, quantized);
-  const int smem = smem_bytes(w, h);
+  const int smem = smem_bytes(w, band_rows);
+  const int n_bands = (h + band_rows - 1) / band_rows;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(nz, S), kThreads, smem, (cudaStream_t)stream>>>(x0, y0, valid, phi, dsi, F, E,
-                                                                nz, w, h, cx, cy);
+  kernel<<<dim3(nz, S, n_bands), kThreads, smem, (cudaStream_t)stream>>>(
+      x0, y0, valid, phi, dsi, F, E, nz, w, h, band_rows, cx, cy);
   return (int)cudaGetLastError();
 }

@@ -75,13 +75,28 @@ def event_frames_from_numpy(xy, valid, t_mid, R, t, *, device=None) -> EventFram
     )
 
 
+def _mask_or_weights(a, device: torch.device) -> torch.Tensor:
+    """A bool mask when every value is exactly 0 or 1 (checked on the host,
+    before the device sees it), else float32 weights as given."""
+    a = np.asarray(a)
+    exact = a.dtype == bool or bool(np.isin(a, (0, 1)).all())
+    return _tensor(a, torch.bool if exact else torch.float32, device)
+
+
 def segment_batch_from_numpy(xy, valid, frame_valid, poses_R, poses_t, ref_R,
                              ref_t, *, device=None) -> SegmentBatch:
-    """SegmentBatch from numpy fields, in the reference's field order."""
+    """SegmentBatch from numpy fields, in the reference's field order.
+
+    The reference's float32 `valid` and `frame_valid` arrive as bool masks
+    when they hold only 1 and 0, and as float32 weights otherwise (the
+    scatter and matmul formulations vote those as given; the kernel
+    formulation refuses them)."""
     dev = resolve_device(device)
     f32 = torch.float32
-    return SegmentBatch(*(_tensor(a, f32, dev) for a in
-                          (xy, valid, frame_valid, poses_R, poses_t, ref_R, ref_t)))
+    return SegmentBatch(
+        _tensor(xy, f32, dev), _mask_or_weights(valid, dev),
+        _mask_or_weights(frame_valid, dev),
+        *(_tensor(a, f32, dev) for a in (poses_R, poses_t, ref_R, ref_t)))
 
 
 # Leaves the reference keeps in float32 whatever the model dtype (norm scales).

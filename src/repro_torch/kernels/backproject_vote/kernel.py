@@ -8,9 +8,11 @@ and the events' validity as a bool mask.
 The host logic the kernel relies on lives here and runs anywhere:
 `check_mask` (validity is a bool mask, so every vote weighs 1 or 0),
 `pad_events` (each frame's events to a multiple of 16, invalid, so
-every bulk copy is 16-byte aligned and sized) and `smem_bytes` /
-`check_shared_memory` (the plane accumulator, the event ring, the phi
-window and the barriers in one CTA).
+every bulk copy is 16-byte aligned and sized) and the shared-memory plan:
+`band_plan` cuts the plane into row bands, one CTA each, so that a band's
+accumulator fits beside the event ring, the phi window and the barriers
+(`smem_bytes`, `check_shared_memory`). A DAVIS240 plane (240x180) is one
+band; DAVIS346 (346x260) two of 130 rows.
 """
 from __future__ import annotations
 
@@ -63,40 +65,51 @@ def pad_events(*arrays: Tensor) -> tuple[Tensor, ...]:
     return tuple(out)
 
 
-def smem_bytes(w: int, h: int) -> int:
-    """Dynamic shared memory one CTA takes for a w x h plane
-    (`backproject_vote_smem_bytes` in the kernel)."""
-    return SMEM_FIXED_BYTES + -(-4 * w * h // 16) * 16
+def smem_bytes(w: int, rows: int) -> int:
+    """Dynamic shared memory one CTA takes for a band of `rows` rows of a
+    w-wide plane (`backproject_vote_smem_bytes` in the kernel)."""
+    return SMEM_FIXED_BYTES + -(-4 * w * rows // 16) * 16
+
+
+def band_plan(w: int, h: int, limit: int) -> tuple[int, int]:
+    """`(band_rows, n_bands)` for a w x h plane under `limit`, the bytes of
+    shared memory a block may opt into on the device.
+
+    The most rows whose accumulator fits beside the fixed part set the
+    number of bands; the bands are then balanced, `ceil(h / n_bands)` rows
+    each and the rest in the last. ValueError when not even one row fits."""
+    max_rows = (limit - SMEM_FIXED_BYTES) // 16 * 16 // (4 * w)
+    if max_rows < 1:
+        raise ValueError(
+            f"one row of a {w}-wide plane needs {smem_bytes(w, 1)} B of shared "
+            f"memory per block ({4 * w} B of accumulator beside the "
+            f"{SMEM_FIXED_BYTES} B event ring, phi window and barriers); this "
+            f"device allows {limit} B")
+    n_bands = -(-h // min(max_rows, h))
+    return -(-h // n_bands), n_bands
 
 
 def check_shared_memory(w: int, h: int, limit: int) -> int:
-    """`smem_bytes(w, h)`, or ValueError when it exceeds `limit`, the bytes
-    of shared memory a block may opt into on the device."""
-    need = smem_bytes(w, h)
-    if need > limit:
-        raise ValueError(
-            f"a {w}x{h} plane needs {need} B of shared memory per block "
-            f"({4 * w * h} B of plane accumulator beside the "
-            f"{SMEM_FIXED_BYTES} B event ring, phi window and barriers); this "
-            f"device allows {limit} B (row-band tiling is not implemented)")
-    return need
+    """The shared memory one CTA of `band_plan(w, h, limit)` takes;
+    ValueError when not even one row fits."""
+    return smem_bytes(w, band_plan(w, h, limit)[0])
 
 
 @functools.cache
 def _library():
     lib = cuda.load("backproject_vote")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.backproject_vote_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float,
-                                            ctypes.c_float, i, i, p]
+    lib.backproject_vote_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                            ctypes.c_float, ctypes.c_float, i, i, p]
     lib.backproject_vote_launch.restype = i
     lib.backproject_vote_smem_bytes.argtypes = [i, i]
     lib.backproject_vote_smem_bytes.restype = i
     return lib
 
 
-def kernel_smem_bytes(w: int, h: int) -> int:
-    """The kernel's own count of `smem_bytes(w, h)` (needs the built library)."""
-    return _library().backproject_vote_smem_bytes(w, h)
+def kernel_smem_bytes(w: int, rows: int) -> int:
+    """The kernel's own count of `smem_bytes(w, rows)` (needs the built library)."""
+    return _library().backproject_vote_smem_bytes(w, rows)
 
 
 def backproject_vote_cuda(
@@ -111,11 +124,15 @@ def backproject_vote_cuda(
     h: int,
     mode: str = "nearest",
     quantized: bool = False,
+    band_rows: int | None = None,
 ) -> Tensor:
     """Stored DSI (S, Nz, h, w): int16 when `quantized`, else float32.
 
     A valid event votes with weight 1: nearest votes are exact int32 counts,
-    bilinear votes add float32 fractions. A refused launch raises."""
+    bilinear votes add float32 fractions. One CTA votes one band of rows of
+    one plane of one segment; `band_rows` forces the band height (a test
+    knob: by default `band_plan` picks the fewest bands that fit). A
+    refused launch raises."""
     if mode not in ("nearest", "bilinear"):
         raise ValueError(f"unknown voting mode: {mode}")
     check_mask("backproject_vote_cuda: valid", valid)
@@ -133,19 +150,24 @@ def backproject_vote_cuda(
         raise ValueError(f"backproject_vote_cuda: phi must be (S, F, Nz, 3), "
                          f"got {tuple(phi.shape)}")
     nz = phi.shape[2]
-    check_shared_memory(
-        w, h, torch.cuda.get_device_properties(x0.device).shared_memory_per_block_optin)
     store = torch.int16 if quantized else torch.float32
     dsi = torch.empty((s, nz, h, w), dtype=store, device=x0.device)
     if dsi.numel() == 0:
         return dsi
+    limit = torch.cuda.get_device_properties(x0.device).shared_memory_per_block_optin
+    if band_rows is None:
+        band_rows, _ = band_plan(w, h, limit)
+    band_rows = min(band_rows, h)
+    if band_rows < 1 or smem_bytes(w, band_rows) > limit:
+        raise ValueError(f"backproject_vote_cuda: band_rows={band_rows} must be at "
+                         f"least 1 and fit {limit} B of shared memory at width {w}")
     x0, y0, valid = pad_events(x0, y0, valid)
     phi = phi.contiguous()
     lib = _library()
     with torch.cuda.device(x0.device):
         err = lib.backproject_vote_launch(
             x0.data_ptr(), y0.data_ptr(), valid.data_ptr(), phi.data_ptr(),
-            dsi.data_ptr(), s, f, x0.shape[-1], nz, w, h, cx, cy,
+            dsi.data_ptr(), s, f, x0.shape[-1], nz, w, h, band_rows, cx, cy,
             int(mode == "bilinear"), int(quantized), cuda.current_stream(x0.device))
         cuda.check(err, "backproject_vote_launch")
         cuda.launch_counts["backproject_vote"] += 1

@@ -81,3 +81,7 @@ def quantize_roundtrip(x: Tensor, fmt: FixedPointFormat) -> Tensor:
     """float -> quantized float (the value the hardware would see)."""
     return dequantize(quantize(x, fmt), fmt)
 
+
+
+def storage_bytes(n_elems: int, fmt: FixedPointFormat) -> int:
+    return n_elems * fmt.total_bits // 8

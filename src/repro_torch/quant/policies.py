@@ -1,7 +1,7 @@
 """The paper's Table 1 quantization policy for EMVS, in PyTorch.
 
-Counterpart of `repro.quant.policies` (the EMVS part; the LM reuse
-policies are not ported).
+Counterpart of `repro.quant.policies` (the EMVS part and its memory
+report; the LM reuse policies are not ported).
 """
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.camera import CameraModel
 from repro_torch.core.geometry import PlaneSweepCoeffs
 from repro_torch.quant.fixed_point import (
     INT8,
@@ -70,3 +71,27 @@ class EMVSQuantPolicy:
 
 TABLE1 = EMVSQuantPolicy()
 
+
+
+def memory_report(cam: CameraModel, num_planes: int, events_per_frame: int = 1024
+                  ) -> dict[str, dict[str, int]]:
+    """Paper section 2.3, "saves up to 50% of memory and bandwidth": bytes
+    per frame of each datapath value, float32 against Table 1."""
+    n_dsi = cam.width * cam.height * num_planes
+    fp32 = {
+        "events": events_per_frame * 2 * 4,
+        "canonical": events_per_frame * 2 * 4,
+        "plane_coords": events_per_frame * 2 * 4,  # per plane, streamed
+        "H": 9 * 4,
+        "phi": 3 * 128 * 4,
+        "dsi": n_dsi * 4,
+    }
+    q = {
+        "events": events_per_frame * 2 * 2,  # Q9.7 pairs packed to 32 bits
+        "canonical": events_per_frame * 2 * 2,
+        "plane_coords": events_per_frame * 2 * 1,  # int8
+        "H": 9 * 4,  # Q11.21 stays 32 bits
+        "phi": 3 * 128 * 4,
+        "dsi": n_dsi * 2,  # int16
+    }
+    return {"float32": fp32, "table1": q}

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.camera import CameraModel
+from repro_torch.core.camera import CAMERAS, CameraModel
 from repro_torch.core.dsi import DSIConfig
 from repro_torch.core.pipeline import EMVSOptions, run_emvs
 from repro_torch.events.aggregation import aggregate
@@ -35,7 +35,12 @@ from repro_torch.events.simulator import (
 )
 from repro_torch.kernels import cuda
 from repro_torch.kernels.backproject_vote import ops
-from repro_torch.kernels.backproject_vote.kernel import backproject_vote_cuda
+from repro_torch.kernels.backproject_vote.kernel import (
+    backproject_vote_cuda,
+    band_plan,
+    kernel_smem_bytes,
+    smem_bytes,
+)
 from repro_torch.kernels.flash_attention.kernel import route
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -146,10 +151,55 @@ def test_cuda_depth_argmax_dtypes(dev, dtype):
 
 
 @pytest.mark.gpu
-def test_cuda_plane_too_large_raises(dev):
-    xy0, valid, phi = (t.to(dev) for t in _inputs(1, 1, 1, 8, 2, 400, 300))
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.backproject_vote_detect(xy0, valid, phi, cx=200.0, cy=150.0, w=400, h=300)
+@pytest.mark.parametrize("W,H", [(400, 300), (346, 260)])
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cuda_plane_too_large_raises(dev, W, H, mode, quantized):
+    """Planes past one CTA's shared memory no longer raise: B1 votes them in
+    row bands (DAVIS346 two, 400x300 three) and matches its plain version."""
+    xy0, valid, phi = _inputs(W + H, 2, 3, 700, 6, W, H)
+    kw = dict(cx=W / 2 + 0.3, cy=H / 2 - 0.2, w=W, h=H, mode=mode, quantized=quantized)
+    n0 = cuda.launch_counts["backproject_vote"]
+    dsi, conf, zf = ops.backproject_vote_detect(xy0.to(dev), valid.to(dev), phi.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["backproject_vote"] == n0 + 1
+    dsi_p, conf_p, zf_p = ops.backproject_vote_detect(xy0, valid, phi, **kw)
+    if mode == "nearest":
+        assert torch.equal(dsi.cpu(), dsi_p)
+        assert torch.equal(conf.cpu(), conf_p) and torch.equal(zf.cpu(), zf_p)
+    else:
+        torch.testing.assert_close(dsi.cpu().float(), dsi_p.float(),
+                                   atol=BILINEAR_ATOL, rtol=BILINEAR_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band_rows", [1, 7, 45, 179, 180, 500])
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+def test_cuda_forced_bands(dev, band_rows, mode):
+    """Forced band heights at 240x180 cross many band edges, bilinear votes
+    that straddle two bands included; the result is the one-band result."""
+    xy0, valid, phi = (t.to(dev) for t in _inputs(band_rows, 2, 4, 512, 5, 240, 180))
+    kw = dict(cx=132.0, cy=110.0, w=240, h=180, mode=mode, quantized=False)
+    got = backproject_vote_cuda(xy0[..., 0], xy0[..., 1], valid, phi, band_rows=band_rows, **kw)
+    want, _, _ = ops.backproject_vote_detect(xy0.cpu(), valid.cpu(), phi.cpu(), **kw)
+    if mode == "nearest":
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, atol=BILINEAR_ATOL, rtol=BILINEAR_RTOL)
+
+
+@pytest.mark.gpu
+def test_cuda_band_plan_matches_the_kernel(dev):
+    """The wrapper's shared-memory count is the kernel's own, and a band
+    height of 0 is refused before any launch."""
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for w, h in ((240, 180), (346, 260), (400, 300)):
+        rows, _ = band_plan(w, h, limit)
+        assert kernel_smem_bytes(w, rows) == smem_bytes(w, rows)
+    xy0, valid, phi = (t.to(dev) for t in _inputs(1, 1, 1, 16, 2, 240, 180))
+    with pytest.raises(ValueError, match="band_rows"):
+        backproject_vote_cuda(xy0[..., 0], xy0[..., 1], valid, phi, cx=1.0, cy=1.0,
+                              w=240, h=180, band_rows=0)
 
 
 @pytest.mark.gpu
@@ -172,6 +222,28 @@ def test_cuda_run_emvs_kernel_matches_scatter(dev):
         ref = run_emvs(cam, cfg, frames,
                        EMVSOptions(formulation="scatter", quantized=quantized,
                                    keyframe_dist_frac=0.05), device=dev)
+        assert len(got.segments) == len(ref.segments) >= 1
+        for a, b in zip(got.segments, ref.segments):
+            assert torch.equal(a.dsi.float(), b.dsi.float())
+            assert torch.equal(a.depth_map.depth, b.depth_map.depth)
+            assert torch.equal(a.depth_map.mask, b.depth_map.mask)
+
+
+@pytest.mark.gpu
+def test_cuda_run_emvs_davis346_kernel_matches_scatter(dev):
+    """DAVIS346 (346x260, two row bands in B1) end to end: the kernel
+    formulation agrees bitwise with the scatter formulation."""
+    cam = CAMERAS["davis346"]
+    scene = make_scene(SceneConfig(points_per_plane=150))
+    traj = make_trajectory("simulation_3planes", 24, device=dev)
+    frames = aggregate(cam, simulate_events(cam, scene, traj, device=dev), traj,
+                       events_per_frame=1024, pose_extrapolation="clamp", device=dev)
+    cfg = DSIConfig.for_camera(cam, num_planes=32, z_min=0.6, z_max=4.5)
+    for quantized in (False, True):
+        opts = EMVSOptions(formulation="kernel", quantized=quantized, keyframe_dist_frac=0.05)
+        got = run_emvs(cam, cfg, frames, opts, device=dev)
+        ref = run_emvs(cam, cfg, frames, EMVSOptions(
+            formulation="scatter", quantized=quantized, keyframe_dist_frac=0.05), device=dev)
         assert len(got.segments) == len(ref.segments) >= 1
         for a, b in zip(got.segments, ref.segments):
             assert torch.equal(a.dsi.float(), b.dsi.float())

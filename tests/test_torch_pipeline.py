@@ -204,4 +204,5 @@ def test_port_imports_neither_jax_nor_the_reference():
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "repro"), f"{path} imports {name}"
+            assert root not in ("jax", "jaxlib", "repro", "benchmarks"), \
+                f"{path} imports {name}"

@@ -5,8 +5,8 @@ relies on from the host runs here: validity as a bool mask (the kernel
 counts each valid vote as 1, so a float weight is refused, on the CPU path
 too), the padding of each frame's events to the 16-byte bulk-copy granule
 (zero weights, so the reference's DSI is unchanged, bitwise) and the
-shared-memory plan of one CTA (plane accumulator, event ring, phi window,
-barriers) against the H100's opt-in limit.
+shared-memory plan of one CTA (a band of the plane's rows, event ring, phi
+window, barriers) against the H100's opt-in limit.
 """
 from __future__ import annotations
 
@@ -80,18 +80,36 @@ def test_pad_events_keeps_aligned_arrays():
     assert mp.data_ptr() % 16 == 0 and torch.equal(mp, mask)
 
 
-@pytest.mark.parametrize("w,h,fits", [(240, 180, True), (346, 260, False),
-                                      (400, 300, False), (64, 48, True)])
-def test_shared_memory_plan(w, h, fits):
-    """One CTA holds the plane, the 34.9 KB ring, the phi window and the
-    barriers: 240x180 fits the H100's 232,448 B opt-in, DAVIS346 does not."""
-    need = K.smem_bytes(w, h)
-    assert need == K.SMEM_FIXED_BYTES + 4 * w * h + (-4 * w * h) % 16
-    if fits:
-        assert K.check_shared_memory(w, h, H100_SMEM_OPTIN) == need
-    else:
-        with pytest.raises(ValueError, match="shared memory"):
-            K.check_shared_memory(w, h, H100_SMEM_OPTIN)
+@pytest.mark.parametrize("w,h,band_rows,n_bands", [(240, 180, 180, 1), (346, 260, 130, 2),
+                                                     (400, 300, 100, 3), (64, 48, 48, 1)])
+def test_shared_memory_plan(w, h, band_rows, n_bands):
+    """One CTA holds a band of rows of the plane beside the 34.9 KB ring,
+    the phi window and the barriers: 240x180 fits the H100's 232,448 B
+    opt-in as one band, DAVIS346 takes two balanced bands, 400x300 three."""
+    assert K.band_plan(w, h, H100_SMEM_OPTIN) == (band_rows, n_bands)
+    assert (n_bands - 1) * band_rows < h <= n_bands * band_rows
+    need = K.smem_bytes(w, band_rows)
+    assert need == K.SMEM_FIXED_BYTES + 4 * w * band_rows + (-4 * w * band_rows) % 16
+    assert K.check_shared_memory(w, h, H100_SMEM_OPTIN) == need <= H100_SMEM_OPTIN
+    # one row more per band would not fit, or there is only one band
+    assert n_bands == 1 or K.smem_bytes(w, -(-h // (n_bands - 1))) > H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("w,rows", [(40_000, 1), (23_820, 2), (47_640, 1)])
+def test_band_plan_narrow_limits(w, rows):
+    """Widths where only one or two rows fit beside the fixed part: every
+    band holds that many rows, and the last one the rest."""
+    band_rows, n_bands = K.band_plan(w, 5, H100_SMEM_OPTIN)
+    assert band_rows <= rows and n_bands == -(-5 // band_rows)
+    assert K.smem_bytes(w, rows) <= H100_SMEM_OPTIN < K.smem_bytes(w, rows + 1)
+
+
+@pytest.mark.parametrize("w", [47_641, 100_000])
+def test_band_plan_refuses_when_no_row_fits(w):
+    with pytest.raises(ValueError, match="one row"):
+        K.band_plan(w, 3, H100_SMEM_OPTIN)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.check_shared_memory(w, 3, H100_SMEM_OPTIN)
 
 
 def test_shared_memory_plan_numbers():
