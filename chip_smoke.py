@@ -50,6 +50,23 @@ Phases, each asserting, none caught:
   4d. runs both examples (`repro_torch.examples`) at 24 trajectory steps,
      `emvs_reconstruction` on DAVIS240 and DAVIS346: the merged map's
      outlier filter on the card keeps the points the CPU's filter keeps;
+  4e. drives the streaming engine (`repro_torch.serving.emvs_stream`) on
+     phase 4's events and trajectory, handed to it on the host: pose-gated
+     streams in event chunks of 4096 and 997 with the tracker's poses in
+     chunks of 8 samples, under the latency, throughput and adaptive
+     policies (max_inflight 2), and two sessions (the whole stream and its
+     first 110 frames) on one MultiStreamEngine, round_robin and
+     throughput, under the balanced and starved schedules. Every result equals `run_emvs` on the
+     card over host-aggregated frames bitwise (dsi, depth, mask), each
+     session its dedicated engine; B1 and B2 launch once per dispatch
+     (counts zeroed before and read after each run); `_dispatch` runs under
+     torch.cuda.set_sync_debug_mode("error"); B1 and B2 are held against
+     their plain versions on one streamed dispatch's batch. Prints the
+     first-depth-map latency, the warm stream wall against the offline
+     one, dispatch counts, device ms per sweep (CUDA events), the
+     sweep-time histogram, a profile of one warm stream, the frame store's
+     peak bytes and the H100 cost table a SweepProfiler recorded (written
+     to results/cost_table_h100.json);
   6. holds the flash-attention kernels against their plain version on the
      card, within the reference's tolerances (FLASH_TOL): the serving
      shapes (1, 32, S, 128) over (1, 8, S, 128) for S in 32, 128, 512,
@@ -152,6 +169,12 @@ B1_EDGE_CASES = (
 # 240x180, where bilinear votes straddle two bands
 B1_BAND_CASES = ((346, 260, None), (400, 300, None), (240, 180, 7), (240, 180, 45))
 B1_BAND_PLANES = 32
+# phase 4e: event chunkings of the streamed runs, pose samples per tracker
+# chunk, the second session's cut (frames) and where the cost table goes
+STREAM_CHUNKS = (4096, 997)
+STREAM_POSE_CHUNK = 8
+STREAM_CUT_FRAMES = 110
+STREAM_COST_TABLE = os.path.join(ROOT, "results", "cost_table_h100.json")
 
 
 def log(msg: str) -> None:
@@ -812,13 +835,14 @@ def emvs_config():
 
 
 def emvs_frames(cam, scene):
-    """The simulated events of a 96-step arc and their 1024-event frames."""
+    """The simulated events of a 96-step arc, their 1024-event frames and
+    the trajectory."""
     from repro_torch.events.aggregation import aggregate
     from repro_torch.events.simulator import make_trajectory, simulate_events
 
     traj = make_trajectory("simulation_3planes", 96)
     events = simulate_events(cam, scene, traj)
-    return events, aggregate(cam, events, traj, events_per_frame=1024)
+    return events, aggregate(cam, events, traj, events_per_frame=1024), traj
 
 
 def main_bucket(cam, dsi_cfg, frames, opts):
@@ -877,7 +901,7 @@ def davis346_phase(card: str, scene, main_cfg, opts) -> dict:
     cam = CAMERAS["davis346"]
     dsi_cfg = DSIConfig.for_camera(cam, num_planes=main_cfg.num_planes,
                                    z_min=main_cfg.z_min, z_max=main_cfg.z_max)
-    _, frames = emvs_frames(cam, scene)
+    _, frames, _ = emvs_frames(cam, scene)
     absrels, launches = {}, {}
     for quantized in (False, True):
         o = dataclasses.replace(opts, quantized=quantized)
@@ -1018,6 +1042,258 @@ def examples_phase(card: str) -> None:
                 f"{int(merged.valid.sum())} points, {int(filtered.valid.sum())} after the "
                 f"filter, the same points as the CPU's filter")
 
+def stream_feed(engine, events, traj, chunk: int, *, gated: bool):
+    """Drive one stream: event chunks of `chunk`; when `gated`, the pose
+    stream in chunks of STREAM_POSE_CHUNK samples, each pushed once the
+    event front has passed its last sample (a tracker trailing the
+    sensor). Returns (result, ms from the first push to the first
+    SegmentResult, ms from the first push to the end of flush)."""
+    import torch
+
+    from repro_torch.events.simulator import iter_trajectory_chunks
+    from repro_torch.serving.emvs_stream import iter_event_chunks
+
+    poses = list(iter_trajectory_chunks(traj, STREAM_POSE_CHUNK)) if gated else []
+    ends = [float(p.times[-1]) for p in poses]
+    t0 = time.perf_counter()
+    first = None
+    for c in iter_event_chunks(events, chunk):
+        out = engine.push(c)
+        front = float(c.t[-1])
+        while poses and ends[0] <= front:
+            ends.pop(0)
+            out += engine.push_poses(poses.pop(0))
+        if out and first is None:
+            first = time.perf_counter()
+    if gated:
+        for p in poses:
+            engine.push_poses(p)
+        engine.finalize_poses()
+    result = engine.flush()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if first is None:
+        first = t1
+    return result, 1e3 * (first - t0), 1e3 * (t1 - t0)
+
+
+def assert_same_results(got, want, what: str) -> None:
+    assert [s.frame_range for s in got.segments] == [s.frame_range for s in want.segments], what
+    for k, (a, b) in enumerate(zip(got.segments, want.segments)):
+        assert_equal(a.dsi, b.dsi, f"{what} segment {k}: dsi")
+        assert_equal(a.depth_map.depth, b.depth_map.depth, f"{what} segment {k}: depth")
+        assert_equal(a.depth_map.mask, b.depth_map.mask, f"{what} segment {k}: mask")
+
+
+def streaming_phase(card: str, cam, dsi_cfg, opts, events, traj) -> dict:
+    """Phase 4e: the streaming engine on the card at the main path's width.
+
+    The offline baseline is `run_emvs` on the card over frames aggregated on
+    the host (the engine's sessions aggregate there). Every streamed result
+    must equal it bitwise on dsi, depth and mask: one pose-gated stream per
+    chunking (STREAM_CHUNKS) and dispatch policy, and two sessions on one
+    MultiStreamEngine (the full stream and its first STREAM_CUT_FRAMES
+    frames, round_robin, throughput) under the balanced and starved schedules, each
+    session equal to its dedicated engine. B1 and B2 launch once per
+    dispatch; `_dispatch` runs under torch.cuda.set_sync_debug_mode("error")
+    in one adaptive stream; B1 is held against its plain version on one
+    streamed dispatch's batch. Prints the first-depth-map latency, the warm
+    walls, dispatch counts, device ms per sweep, the sweep-time histogram,
+    a profile of one warm stream, the frame store's peak bytes and the cost
+    table a SweepProfiler recorded (written to STREAM_COST_TABLE)."""
+    import torch
+
+    from repro_torch.core.geometry import SE3
+    from repro_torch.core.pipeline import precompute_batch_geometry, run_emvs
+    from repro_torch.events.aggregation import aggregate
+    from repro_torch.events.simulator import EventStream, Trajectory
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.backproject_vote.ops import canonical_inputs
+    from repro_torch.profiling import SweepProfiler
+    from repro_torch.serving import sweep_dispatcher
+    from repro_torch.serving.emvs_stream import (
+        EMVSStreamEngine,
+        MultiStreamEngine,
+        StreamConfig,
+        iter_event_chunks,
+    )
+
+    t_phase = time.perf_counter()
+    # a camera's events and a tracker's poses reach the host first
+    events_card = events
+    events = EventStream(*(a.cpu() for a in events))
+    traj = Trajectory(traj.times.cpu(), SE3(traj.poses.R.cpu(), traj.poses.t.cpu()))
+    host_frames = aggregate(cam, events, traj, events_per_frame=1024, device="cpu")
+    base = run_emvs(cam, dsi_cfg, host_frames, opts)
+    assert len(base.segments) >= 2
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_emvs(cam, dsi_cfg, aggregate(cam, events, traj, events_per_frame=1024,
+                                         device="cpu"), opts)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    offline_ms = statistics.median(walls)
+
+    def engine(policy="adaptive", gated=True, **kw):
+        return EMVSStreamEngine(cam, dsi_cfg, None if gated else traj, opts,
+                                StreamConfig(dispatch_policy=policy, max_inflight=2), **kw)
+
+    # the pose-gated single stream: every chunking x policy, bitwise
+    counts = {}
+    for chunk in STREAM_CHUNKS:
+        for policy in ("latency", "throughput", "adaptive"):
+            e = engine(policy)
+            torch.cuda.synchronize()
+            cuda.launch_counts.clear()
+            result, first_ms, wall_ms = stream_feed(e, events, traj, chunk, gated=True)
+            launches = dict(cuda.launch_counts)
+            st = e.stats
+            assert_same_results(result, base, f"stream {policy} chunk {chunk}")
+            for name in ("backproject_vote", "depth_argmax"):
+                assert launches.get(name, 0) == st["dispatches"], (policy, chunk, name, launches)
+            counts[(chunk, policy)] = (st["dispatches"], st["coalesced_segments"],
+                                       st["padded_segments"], st["segments"])
+    log(f"stream (pose-gated, pose chunks of {STREAM_POSE_CHUNK}, max_inflight 2): every "
+        f"chunking x policy bitwise run_emvs on host-aggregated frames; "
+        f"(dispatches, coalesced segments, padded segments, segments): "
+        + ", ".join(f"{c}/{p} {v}" for (c, p), v in counts.items()))
+
+    # warm timings of the main streamed run (adaptive, the first chunking)
+    # and the launches of that run
+    chunk = STREAM_CHUNKS[0]
+    firsts, stream_walls = [], []
+    for _ in range(3):
+        e = engine("adaptive")
+        torch.cuda.synchronize()
+        cuda.launch_counts.clear()
+        result, first_ms, wall_ms = stream_feed(e, events, traj, chunk, gated=True)
+        launches = dict(cuda.launch_counts)
+        firsts.append(first_ms)
+        stream_walls.append(wall_ms)
+    st = e.stats
+    main_launches = launches
+    dev_hist = e._dispatcher.device_time_s.snapshot()
+    assert dev_hist["count"] == st["dispatches"] == launches["backproject_vote"]
+    log(f"[{card}] stream adaptive, {chunk}-event chunks, {len(result.segments)} segments in "
+        f"{st['dispatches']} dispatches: first depth map {statistics.median(firsts):.2f} ms "
+        f"after the first push (runs {[round(x, 2) for x in firsts]}); warm wall "
+        f"{statistics.median(stream_walls):.2f} ms (runs {[round(x, 2) for x in stream_walls]}) "
+        f"against offline aggregate + run_emvs {offline_ms:.2f} ms (runs "
+        f"{[round(x, 2) for x in walls]}); launches {launches}")
+    log(f"[{card}] stream device span per sweep (its start and done CUDA events, which "
+        f"include the card's idle time while the host enqueues): mean "
+        f"{1e3 * dev_hist['total_s'] / dev_hist['count']:.4f} ms, max "
+        f"{1e3 * dev_hist['max_s']:.4f} ms over {dev_hist['count']} sweeps; sweep_time_s "
+        f"(host, dispatch to harvest): count "
+        f"{st['sweep_time_s']['count']}, mean "
+        f"{1e3 * st['sweep_time_s']['total_s'] / st['sweep_time_s']['count']:.3f} ms, max "
+        f"{1e3 * st['sweep_time_s']['max_s']:.3f} ms, bins {st['sweep_time_s']['bins']} over "
+        f"edges {st['sweep_time_s']['bin_edges_s']} s; frame store peak "
+        f"{st['frame_store_peak_bytes']} B")
+    log_breakdown(card, f"stream (adaptive, {chunk}-event chunks)",
+                  lambda: stream_feed(engine("adaptive"), events, traj, chunk, gated=True))
+
+    # no host sync in _dispatch; B1 against its plain version on one
+    # streamed dispatch's batch
+    e = engine("adaptive")
+    dispatcher = e._dispatcher
+    dispatch, sweep = dispatcher._dispatch, sweep_dispatcher.process_segments_batched
+    batches = []
+
+    def strict(group, cap):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch(group, cap)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def keep_batch(cam_, cfg_, batch, opts_):
+        batches.append(batch)
+        return sweep(cam_, cfg_, batch, opts_)
+
+    dispatcher._dispatch = strict
+    sweep_dispatcher.process_segments_batched = keep_batch
+    try:
+        result, _, _ = stream_feed(e, events, traj, chunk, gated=True)
+    finally:
+        sweep_dispatcher.process_segments_batched = sweep
+    assert_same_results(result, base, "stream under sync_debug_mode('error')")
+    assert len(batches) == dispatcher.stats["dispatches"]
+    batch = batches[0]
+    planes = dsi_cfg.planes(device=batch.xy.device)
+    geoms = precompute_batch_geometry(cam, batch.poses_R, batch.poses_t,
+                                      SE3(batch.ref_R[:, None], batch.ref_t[:, None]), planes,
+                                      planes[dsi_cfg.num_planes // 2])
+    phi = torch.stack([geoms.phi.alpha, geoms.phi.beta_x, geoms.phi.beta_y], -1)
+    xy0, valid, phi = canonical_inputs(batch.xy, batch.valid, geoms.H, phi,
+                                       quantized=opts.quantized, frame_valid=batch.frame_valid)
+    s_, c_, e_ = valid.shape
+    err1, _ = compare_b1_b2(xy0, valid, phi, cam=cam, mode=opts.voting,
+                            quantized=opts.quantized,
+                            what=f"streamed dispatch S={s_} C={c_} E={e_}")
+    log(f"stream: {dispatcher.stats['dispatches']} dispatches under "
+        f"set_sync_debug_mode('error'), no host sync; B1 and B2 bitwise their plain versions "
+        f"on one streamed dispatch's batch (S={s_} C={c_} E={e_})")
+
+    # two sessions on one MultiStreamEngine, round_robin; "throughput" lets
+    # same-capacity segments of the two sessions share a dispatch
+    cut = STREAM_CUT_FRAMES * 1024 + 517
+    ev_b = EventStream(*(a[:cut] for a in events))
+    # session a is fed the events where the simulator made them, on the
+    # card: a session copies each chunk to the host once
+    dedicated_b = EMVSStreamEngine(cam, dsi_cfg, traj, opts, StreamConfig())
+    want_b, _, _ = stream_feed(dedicated_b, ev_b, traj, chunk, gated=False)
+    for schedule in ("balanced", "starved"):
+        multi = MultiStreamEngine(cam, dsi_cfg, opts, StreamConfig(
+            fairness="round_robin", dispatch_policy="throughput"))
+        a = multi.add_session("a", traj=traj)
+        b = multi.add_session("b", traj=traj if schedule == "balanced" else None)
+        torch.cuda.synchronize()
+        cuda.launch_counts.clear()
+        chunks_a = list(iter_event_chunks(events_card, chunk))
+        chunks_b = list(iter_event_chunks(ev_b, chunk))
+        if schedule == "balanced":
+            for k in range(max(len(chunks_a), len(chunks_b))):
+                if k < len(chunks_a):
+                    a.push(chunks_a[k])
+                if k < len(chunks_b):
+                    b.push(chunks_b[k])
+            res = {"a": a.flush(), "b": b.flush()}
+        else:
+            for c in chunks_b:
+                b.push(c)  # every frame of b stalls: no poses yet
+            for c in chunks_a:
+                a.push(c)
+            res = {"a": a.flush()}
+            b.push_poses(traj)
+            b.finalize_poses()
+            res["b"] = b.flush()
+        d = multi.stats["dispatcher"]
+        launches = dict(cuda.launch_counts)
+        assert launches.get("backproject_vote", 0) == d["dispatches"]
+        assert_same_results(res["a"], base, f"multi {schedule} session a")
+        assert_same_results(res["b"], want_b, f"multi {schedule} session b")
+        log(f"multi-stream {schedule} (round_robin, throughput, sessions of {len(base.segments)} and "
+            f"{len(want_b.segments)} segments): each session bitwise its dedicated engine; "
+            f"dispatches {d['dispatches']}, cross_stream_dispatches "
+            f"{d['cross_stream_dispatches']}, coalesced segments {d['coalesced_segments']}")
+
+    # the cost table a SweepProfiler records on the card
+    profiler = SweepProfiler()
+    for policy in ("latency", "throughput", "adaptive"):
+        for _ in range(2):
+            stream_feed(engine(policy, profiler=profiler), events, traj, chunk, gated=True)
+    os.makedirs(os.path.dirname(STREAM_COST_TABLE), exist_ok=True)
+    profiler.table.save(STREAM_COST_TABLE)
+    log(f"[{card}] SweepProfiler cost table ({len(profiler.table)} variants, "
+        f"{profiler.skipped_cold} cold and {profiler.skipped_shadowed} shadowed sweeps "
+        f"skipped), written to {os.path.relpath(STREAM_COST_TABLE, ROOT)}: "
+        + json.dumps(profiler.table.to_json()["entries"]))
+    log(f"streaming phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": main_launches, "max_abs_err": err1}
+
 
 def emvs_bound(nbytes: int, nops: int) -> tuple[float, str]:
     """Least ms for `nbytes` of device memory traffic and `nops` float32
@@ -1082,7 +1358,7 @@ def main() -> int:
     torch.cuda.synchronize()
     cuda.launch_counts.clear()
     t0 = time.perf_counter()
-    events, frames = emvs_frames(cam, scene)
+    events, frames, traj = emvs_frames(cam, scene)
     result = run_emvs(cam, dsi_cfg, frames, opts)
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t0
@@ -1192,12 +1468,13 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s")
     log_breakdown(card, "run_emvs", lambda: run_emvs(cam, dsi_cfg, frames, opts))
 
-    # 4b-4d. DAVIS346, the paper's tables, the examples
+    # 4b-4e. DAVIS346, the paper's tables, the examples, the streaming engine
     t0 = time.perf_counter()
     d346 = davis346_phase(card, scene, dsi_cfg, opts)
     paper_tables(card)
     examples_phase(card)
     log(f"DAVIS346, paper tables and examples: {time.perf_counter() - t0:.1f} s")
+    stream = streaming_phase(card, cam, dsi_cfg, opts, events, traj)
 
     # 6. the flash-attention kernel vs its plain version
     log("flash attention kernel vs plain:")
@@ -1214,6 +1491,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/backproject_vote.cu",
          "replaces": "src/repro/kernels/backproject_vote/kernel.py:241",
          "launches": launches["backproject_vote"], "max_abs_err": err1,
+         "launches_streaming": stream["launches"]["backproject_vote"],
+         "max_abs_err_streaming": stream["max_abs_err"],
          "ms": main_row["b1_eager_ms"], "plain_ms": main_row["b1_plain_ms"],
          "bound_ms": main_row["b1_bound_ms"], "bound_by": main_row["b1_bound_by"],
          "library_ms": None, "device_ms": main_row["b1_device_ms"],
@@ -1227,6 +1506,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/local_max.cu",
          "replaces": "src/repro/kernels/local_max/kernel.py:74",
          "launches": launches["depth_argmax"], "max_abs_err": err2,
+         "launches_streaming": stream["launches"]["depth_argmax"],
          "ms": main_row["b2_eager_ms"], "plain_ms": main_row["b2_plain_ms"],
          "bound_ms": main_row["b2_bound_ms"], "bound_by": main_row["b2_bound_by"],
          "library_ms": None, "device_ms": main_row["b2_device_ms"],

@@ -111,7 +111,7 @@ def detect_structure(
 def median_filter3(depth: Tensor, mask: Tensor) -> Tensor:
     """3x3 median over valid neighbours (wrap-around shifts, as the
     reference's `jnp.roll`)."""
-    big = torch.tensor(float("inf"), dtype=torch.float32, device=depth.device)
+    big = torch.full((), float("inf"), dtype=torch.float32, device=depth.device)
     shifts = []
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):

@@ -92,3 +92,12 @@ def store_saturation_fraction(dsi: Tensor) -> Tensor:
     `saturation_fraction` is zero by construction."""
     info = torch.iinfo(DSI_STORE_DTYPE)
     return _fraction((dsi >= info.max) | (dsi <= info.min))
+
+
+def store_saturation_fractions(dsis: Tensor) -> Tensor:
+    """`store_saturation_fraction` of each volume of a stack (S, Nz, h, w),
+    as one float32 (S,) tensor on the stack's device (no host sync)."""
+    info = torch.iinfo(DSI_STORE_DTYPE)
+    hit = ((dsis >= info.max) | (dsis <= info.min)).flatten(1)
+    return hit.sum(1).to(torch.float32) / torch.full(
+        (), hit.shape[1], dtype=torch.float32, device=dsis.device)

@@ -7,7 +7,9 @@ that the paper computes once per event frame, with
     x_i = alpha_i * (x0 - cx) + beta_x_i + cx,
     y_i = alpha_i * (y0 - cy) + beta_y_i + cy.
 
-Rounding follows the reference as XLA compiles it for the CPU, where it
+Constants are made on the tensors' device (fills, `torch.eye`), never
+copied from the host, so no function here makes the host wait on the
+card. Rounding follows the reference as XLA compiles it for the CPU, where it
 contracts a multiply feeding an add into one fused multiply-add (FMA).
 Wherever the reference rounds once, this module calls `torch.addcmul`,
 which PyTorch evaluates as an FMA; elsewhere every operation rounds on its
@@ -20,6 +22,7 @@ own. In particular:
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -132,13 +135,13 @@ def _linspace(start: float, stop: float, num: int, device=None) -> Tensor:
     `start * (1 - step) + iota * (stop * c)` with every product rounded;
     the last entry is `stop` itself."""
     f32 = torch.float32
-    start_t = torch.tensor(start, dtype=f32, device=device)
-    stop_t = torch.tensor(stop, dtype=f32, device=device)
+    start_t = torch.full((), start, dtype=f32, device=device)
+    stop_t = torch.full((), stop, dtype=f32, device=device)
     if num <= 1:
         return start_t.reshape(1)[:num]
     div = num - 1
-    c = torch.tensor(1.0, dtype=f32) / torch.tensor(float(div), dtype=f32)
-    c = c.to(device)
+    c = torch.full((), float(torch.tensor(1.0, dtype=f32) / torch.tensor(float(div), dtype=f32)),
+                   dtype=f32, device=device)
     iota = torch.arange(div, dtype=f32, device=device)
     out = start_t * (1.0 - iota * c) + iota * (stop_t * c)
     return torch.cat([out, stop_t.reshape(1)])
@@ -163,6 +166,21 @@ def relative_pose_ref_from_cam(T_w_ref: SE3, T_w_cam: SE3) -> SE3:
     return T_w_ref.inverse().compose(T_w_cam)
 
 
+@functools.lru_cache(maxsize=16)
+def _intrinsics(cam: CameraModel, device: torch.device) -> tuple[Tensor, Tensor]:
+    """`cam.K` and `cam.K_inv` on `device`, each entry filled in from the
+    host matrix's float32 value: fills, not a copy from the host, so
+    nothing waits for the card. Shared read-only by every caller."""
+    out = []
+    for host in (cam.K, cam.K_inv):
+        m = torch.empty((3, 3), dtype=torch.float32, device=device)
+        for i, row in enumerate(host.tolist()):
+            for j, v in enumerate(row):
+                m[i, j].fill_(v)
+        out.append(m)
+    return out[0], out[1]
+
+
 def canonical_homography(cam: CameraModel, T_ref_cam: SE3, z0: Tensor) -> Tensor:
     """H_Z0 (..., 3, 3): current-camera pixels -> reference pixels via z = Z0.
 
@@ -171,12 +189,12 @@ def canonical_homography(cam: CameraModel, T_ref_cam: SE3, z0: Tensor) -> Tensor
     """
     R_rc, t_rc = T_ref_cam.R, T_ref_cam.t
     dev = R_rc.device
-    e_z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dev)
+    e_z = torch.eye(3, dtype=torch.float32, device=dev)[2]
     n_c = matvec3(R_rc.transpose(-1, -2), e_z.expand(t_rc.shape))
     d_c = z0 - matvec3(t_rc[..., None, :], e_z.expand(t_rc.shape))[..., 0]
     H_metric = R_rc + (t_rc[..., :, None] * n_c[..., None, :]) / d_c[..., None, None]
-    K = cam.K.to(dev).expand(H_metric.shape)
-    K_inv = cam.K_inv.to(dev).expand(H_metric.shape)
+    K, K_inv = _intrinsics(cam, dev)
+    K, K_inv = K.expand(H_metric.shape), K_inv.expand(H_metric.shape)
     H = matmul3(matmul3(K, H_metric), K_inv)
     return H / H[..., 2:3, 2:3]
 

@@ -6,6 +6,12 @@ edge segments; each visible point emits one event per trajectory step at
 its (integer) pixel. Random draws come from `numpy.random.default_rng`
 seeded and ordered exactly as the reference draws them; the projection
 runs in PyTorch on the requested device.
+
+For the streaming engine: `slice_trajectory` and `iter_trajectory_chunks`
+replay a tracker that delivers poses in chunks, and `corrupt_stream`
+injects the adversarial ingest faults (`EVENT_CORRUPTIONS`) that
+`events.stream_hygiene` guards against, on the host with the reference's
+seeded numpy draws.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import torch
 
 from repro_torch.core.camera import CameraModel, distort_normalized, project
 from repro_torch.core.geometry import SE3, so3_exp
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_host
 
 Tensor = torch.Tensor
 
@@ -32,6 +38,27 @@ class EventStream(NamedTuple):
 class Trajectory(NamedTuple):
     times: Tensor  # (F,)
     poses: SE3  # batched (F, 3, 3), (F, 3): T_w_cam
+
+
+def slice_trajectory(traj: Trajectory, lo: int, hi: int) -> Trajectory:
+    """Samples [lo, hi) of a trajectory, poses included.
+
+    The building block for replaying a tracker feed: pair it with a cursor
+    over `traj.times` to push exactly the poses a lagging tracker would
+    have delivered by now.
+    """
+    return Trajectory(times=traj.times[lo:hi],
+                      poses=SE3(traj.poses.R[lo:hi], traj.poses.t[lo:hi]))
+
+
+def iter_trajectory_chunks(traj: Trajectory, chunk_poses: int):
+    """Split a trajectory into contiguous chunks of `chunk_poses` samples;
+    pushed in order to a `TrajectoryBuffer` they rebuild it exactly."""
+    if chunk_poses < 1:
+        raise ValueError(f"chunk_poses must be >= 1, got {chunk_poses}")
+    n = int(traj.times.shape[0])
+    for i in range(0, n, chunk_poses):
+        yield slice_trajectory(traj, i, min(i + chunk_poses, n))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +197,104 @@ def simulate_events(
     xy, tt, vv, pp = xy[order], tt[order], vv[order], pp[order]
     xy = torch.where(vv[:, None], xy, torch.full_like(xy, -1e4))
     return EventStream(xy=xy.to(torch.float32), t=tt, polarity=pp, valid=vv)
+
+
+EVENT_CORRUPTIONS = ("shuffle_events", "swap_chunks", "duplicate_chunk",
+                     "out_of_bounds", "hot_pixel")
+
+
+def _as_stream(xy, t, polarity, valid) -> EventStream:
+    return EventStream(*(torch.from_numpy(np.ascontiguousarray(a))
+                         for a in (xy, t, polarity, valid)))
+
+
+def corrupt_stream(stream: EventStream, mode: str, chunk_events: int, *,
+                   seed: int = 0, width: int | None = None,
+                   height: int | None = None,
+                   burst: int = 32) -> list[EventStream]:
+    """Fault injection: chunk a clean stream, then break one thing.
+
+    Returns the stream split into host (CPU tensor) chunks of
+    `chunk_events` with exactly one adversarial corruption applied, the
+    same events the reference's `corrupt_stream` returns for the same
+    seed:
+
+      * `"shuffle_events"` — one mid-stream chunk's events permuted (tied
+        timestamps keep their relative order, so a stable re-sort restores
+        the chunk exactly);
+      * `"swap_chunks"` — two adjacent chunks delivered in the wrong order;
+      * `"duplicate_chunk"` — one chunk replayed byte-identically right
+        after itself;
+      * `"out_of_bounds"` — a few spurious valid events at off-sensor
+        coordinates (needs `width`/`height`), at timestamps tied to their
+        insertion point so ordering stays legal;
+      * `"hot_pixel"` — a `burst` of events at one in-bounds pixel and one
+        timestamp spliced into a mid-stream chunk (needs `width`/`height`).
+
+    Injection sites are drawn from `numpy.random.default_rng(seed)`.
+    """
+    if mode not in EVENT_CORRUPTIONS:
+        raise ValueError(f"unknown corruption mode {mode!r}: expected one "
+                         f"of {EVENT_CORRUPTIONS}")
+    if chunk_events < 1:
+        raise ValueError(f"chunk_events must be >= 1, got {chunk_events}")
+    if mode in ("out_of_bounds", "hot_pixel") and (width is None
+                                                   or height is None):
+        raise ValueError(f"mode {mode!r} needs the sensor size: pass "
+                         f"width= and height=")
+    xy = to_host(stream.xy, np.float32)
+    t = to_host(stream.t, np.float32)
+    pol = to_host(stream.polarity, np.int8)
+    val = to_host(stream.valid, bool)
+    chunks = [(xy[i:i + chunk_events], t[i:i + chunk_events],
+               pol[i:i + chunk_events], val[i:i + chunk_events])
+              for i in range(0, t.shape[0], chunk_events)]
+    if not chunks:
+        raise ValueError("cannot corrupt an empty stream")
+    rng = np.random.default_rng(seed)
+    k = len(chunks) // 2  # a mid-stream site: past warm-up, before flush
+    c_xy, c_t, c_pol, c_val = chunks[k]
+    nc = int(c_t.shape[0])
+    if mode == "shuffle_events":
+        if nc < 2 or np.unique(c_t).size < 2:
+            raise ValueError("shuffle_events needs a chunk with >= 2 "
+                             "distinct timestamps")
+        while True:
+            perm = rng.permutation(nc)
+            _, inv = np.unique(c_t[perm], return_inverse=True)
+            for g in range(int(inv.max()) + 1):
+                pos = np.flatnonzero(inv == g)
+                if pos.size > 1:
+                    perm[pos] = np.sort(perm[pos])
+            if not np.array_equal(perm, np.arange(nc)):  # reject no-ops
+                break
+        chunks[k] = (c_xy[perm], c_t[perm], c_pol[perm], c_val[perm])
+    elif mode == "swap_chunks":
+        if len(chunks) < 2:
+            raise ValueError("swap_chunks needs >= 2 chunks")
+        j = min(k, len(chunks) - 2)
+        chunks[j], chunks[j + 1] = chunks[j + 1], chunks[j]
+    elif mode == "duplicate_chunk":
+        chunks.insert(k + 1, tuple(a.copy() for a in chunks[k]))
+    elif mode == "out_of_bounds":
+        m = min(4, nc)
+        pos = np.sort(rng.integers(1, nc + 1, size=m))
+        off_x = np.where(rng.random(m) < 0.5, -7.0, float(width) + 3.0)
+        inj_xy = np.stack(
+            [off_x, rng.uniform(0, height - 1, m)], axis=1).astype(np.float32)
+        chunks[k] = (np.insert(c_xy, pos, inj_xy, axis=0),
+                     np.insert(c_t, pos, c_t[pos - 1]),
+                     np.insert(c_pol, pos, np.ones(m, np.int8)),
+                     np.insert(c_val, pos, np.ones(m, bool)))
+    elif mode == "hot_pixel":
+        p = max(1, nc // 2)
+        px = np.asarray([rng.integers(0, width), rng.integers(0, height)],
+                        np.float32)
+        chunks[k] = (np.insert(c_xy, p, np.tile(px, (burst, 1)), axis=0),
+                     np.insert(c_t, p, np.full(burst, c_t[p - 1], np.float32)),
+                     np.insert(c_pol, p, np.ones(burst, np.int8)),
+                     np.insert(c_val, p, np.ones(burst, bool)))
+    return [_as_stream(*c) for c in chunks]
 
 
 def ground_truth_depth(cam: CameraModel, scene_points: np.ndarray, T_w_ref: SE3

@@ -1,2 +1,3 @@
-"""Serving: the continuous-batching LM engine (`engine`). The streaming
-EMVS engine waits for its slice (ROADMAP A5)."""
+"""Serving: the continuous-batching LM engine (`engine`) and the streaming
+EMVS engine (`emvs_stream`: `EMVSStreamEngine`, `MultiStreamEngine`,
+built on `stream_session` and `sweep_dispatcher`)."""

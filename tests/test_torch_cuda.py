@@ -15,8 +15,13 @@ run in another order, the tensor-core route rounds the probabilities to
 bf16 before their product with V; bf16 outputs round at 2^-8 relative).
 Each flash-attention case also asserts the route it took (bf16 with D a
 multiple of 16: tensor cores; otherwise CUDA cores) by its launch counter.
+The streaming engine on the card equals `run_emvs` on host-aggregated
+frames bitwise, launches B1 and B2 once per dispatch, stages each batch
+from pinned memory and makes no host sync in `_dispatch`.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import pytest
@@ -46,6 +51,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.local_max.ops import depth_argmax
 from repro_torch.models import model as M
+from repro_torch.serving.emvs_stream import EMVSStreamEngine, StreamConfig, iter_event_chunks
 from repro_torch.serving.engine import Engine, EngineConfig, Request
 
 BILINEAR_ATOL, BILINEAR_RTOL = 1e-4, 1e-5
@@ -345,6 +351,140 @@ def test_cuda_engine_reduced_matches_cpu(dev):
     assert cuda.launch_counts["flash_attention"] == cfg.n_layers * len(prompts)
     assert cuda.launch_counts["flash_attention_fma"] == cfg.n_layers * len(prompts)
     assert out[0] == out[1]
+
+
+def _stream_scene(n_planes: int = 32):
+    """Events of a 24-step arc (on the host), their host-aggregated 1024-event
+    frames, the trajectory, the DSI config and the kernel options."""
+    cam = CameraModel()
+    traj = make_trajectory("simulation_3planes", 24, device="cpu")
+    events = simulate_events(cam, make_scene(SceneConfig(points_per_plane=150)), traj,
+                             device="cpu")
+    frames = aggregate(cam, events, traj, events_per_frame=1024,
+                       pose_extrapolation="clamp", device="cpu")
+    cfg = DSIConfig.for_camera(cam, num_planes=n_planes, z_min=0.6, z_max=4.5)
+    opts = EMVSOptions(formulation="kernel", quantized=True, keyframe_dist_frac=0.05)
+    return cam, traj, events, frames, cfg, opts
+
+
+def _stream_engine(dev, cam, traj, cfg, opts, **stream):
+    return EMVSStreamEngine(cam, cfg, traj, opts,
+                            StreamConfig(pose_extrapolation="clamp", **stream), device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["latency", "throughput", "adaptive"])
+def test_cuda_stream_engine_matches_run_emvs(dev, policy):
+    """The streaming engine on the card, nearest quantized on the kernel
+    formulation: bitwise `run_emvs` on the same host-aggregated frames,
+    and B1 and B2 launch once per dispatch."""
+    cam, traj, events, frames, cfg, opts = _stream_scene()
+    ref = run_emvs(cam, cfg, frames, opts, device=dev)
+    for chunk in (997, 4096):
+        engine = _stream_engine(dev, cam, traj, cfg, opts, dispatch_policy=policy)
+        cuda.launch_counts.clear()
+        for c in iter_event_chunks(events, chunk):
+            engine.push(c)
+        got = engine.flush()
+        n = engine.stats["dispatches"]
+        assert n >= 1 and cuda.launch_counts["backproject_vote"] == n
+        assert cuda.launch_counts["depth_argmax"] == n
+        assert [s.frame_range for s in got.segments] == [s.frame_range for s in ref.segments]
+        for a, b in zip(got.segments, ref.segments):
+            assert a.dsi.is_cuda
+            assert torch.equal(a.dsi, b.dsi)
+            assert torch.equal(a.depth_map.depth, b.depth_map.depth)
+            assert torch.equal(a.depth_map.mask, b.depth_map.mask)
+        assert engine._dispatcher.device_time_s.count == n
+
+
+@pytest.mark.gpu
+def test_cuda_dispatch_makes_no_host_sync(dev):
+    """Staging, the sweep (B1, B2, detection), the point clouds, the
+    saturation copy and the event record: no host sync in `_dispatch`."""
+    cam, traj, events, frames, cfg, opts = _stream_scene()
+    engine = _stream_engine(dev, cam, traj, cfg, opts, max_inflight=8)
+    dispatcher = engine._dispatcher
+    dispatch = dispatcher._dispatch
+    calls = []
+
+    def strict(group, cap):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch(group, cap)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        calls.append(len(group))
+
+    dispatcher._dispatch = strict
+    engine.push(events)  # cold: the first dispatch builds and loads the kernels
+    got = engine.flush()
+    assert calls and sum(calls) == len(got.segments)
+    ref = run_emvs(cam, cfg, frames, opts, device=dev)
+    for a, b in zip(got.segments, ref.segments):
+        assert torch.equal(a.dsi, b.dsi)
+
+
+@pytest.mark.gpu
+def test_cuda_harvest_does_not_wait(dev):
+    """Sweeps queued behind a long-running kernel are not complete: `push`
+    and `poll` return at once without them, and they surface once the card
+    has run them. (`max_inflight` above the dispatch count: the
+    back-pressure on the oldest sweep waits by design.)"""
+    cam, traj, events, frames, cfg, opts = _stream_scene()
+    warm = _stream_engine(dev, cam, traj, cfg, opts, dispatch_policy="latency")
+    warm.push(events)  # builds and loads the kernels
+    warm.flush()
+    engine = _stream_engine(dev, cam, traj, cfg, opts, dispatch_policy="latency",
+                            max_inflight=16)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(3e9))  # about 1.5 s of the card's clock on this stream
+    t0 = time.perf_counter()
+    early = engine.push(events) + engine.poll()
+    waited = time.perf_counter() - t0
+    queued = len(engine._inflight)
+    torch.cuda.synchronize()
+    late = engine.poll()
+    engine.flush()
+    assert early == [] and queued >= 2, "a sweep the card has not run surfaced"
+    assert waited < 0.5, f"push and poll waited {waited:.3f} s for the card"
+    assert len(late) == queued
+
+
+@pytest.mark.gpu
+def test_cuda_batch_staged_from_pinned_memory(dev):
+    """`pad_segment_rows`' batch reaches the card by non-blocking copies from
+    pinned host tensors, which the in-flight entry keeps until harvest."""
+    from repro_torch.core.pipeline import pad_segment_rows
+    from repro_torch.serving.sweep_dispatcher import _stage
+
+    cam, traj, events, frames, cfg, opts = _stream_scene()
+    host = pad_segment_rows([(frames, (0, 3)), (frames, (3, 7))], 4)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        staged, pinned = _stage(host, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(t.is_pinned() for t in pinned)
+    assert all(t.is_cuda for t in staged)
+    for a, b in zip(staged, host):
+        assert torch.equal(a.cpu(), b)
+    engine = _stream_engine(dev, cam, traj, cfg, opts, dispatch_policy="latency")
+    dispatcher = engine._dispatcher
+    dispatch, entries = dispatcher._dispatch, []
+
+    def keep(group, cap):
+        dispatch(group, cap)
+        entries.append(dispatcher._inflight[-1])
+
+    dispatcher._dispatch = keep
+    engine.push(events)
+    engine.flush()
+    assert entries and len(entries) == engine.stats["dispatches"]
+    for inf in entries:
+        assert inf.staging is not None and all(t.is_pinned() for t in inf.staging)
+        assert inf.staging.xy.shape[0] == inf.dsis.shape[0]
+        assert inf.saturation.is_pinned() and inf.done is not None and inf.done.query()
 
 
 def _to(tree, dev):
