@@ -24,8 +24,9 @@ and its coalescing dispatcher groups queued closed segments with
 predictions), gathering each group's rows from per-session frame stores
 with `pad_segment_rows`. Grouping never changes a segment's numbers.
 
-Not ported yet: the sharded backend (ROADMAP A5) and the static-analysis
-trace specs.
+`run_emvs(sweep="sharded")` splits each bucket's segment axis over the
+ranks of a `torch.distributed` mesh (`repro_torch.distributed.emvs`). Not
+ported: the static-analysis trace specs.
 """
 from __future__ import annotations
 
@@ -756,17 +757,45 @@ def run_emvs(
     opts: EMVSOptions = EMVSOptions(),
     *,
     sweep: str = "batched",
+    mesh: Any | None = None,
     device=None,
 ) -> EMVSResult:
     """Process an aggregated event-frame sequence end to end.
 
     Segments are grouped into fixed frame-capacity buckets; each bucket is
     one sweep call plus one batched depth-map -> point-cloud conversion.
-    Runs on the CUDA card unless `device="cpu"`. Only the "batched" sweep
-    backend is ported.
+    Runs on the CUDA card unless `device="cpu"`.
+
+    sweep: which segment-sweep backend runs each bucket.
+      * "batched" — `process_segments_batched`, the bucket's segments as a
+        tensor batch dimension of one sweep;
+      * "sharded" — `repro_torch.distributed.emvs.process_segments_sharded`:
+        the bucket's segment axis is split over the ranks of `mesh` (default
+        `make_segment_mesh()`, every rank of the initialized default process
+        group), so concurrent segments vote on different cards. Every rank
+        calls `run_emvs` on the same frames and gets the whole result. The
+        segment list is padded to a multiple of the mesh's segment-axis
+        size by repeating the last segment; padded rows are discarded, and
+        real rows equal the batched backend's bitwise.
     """
-    if sweep != "batched":
-        raise ValueError(f"unknown sweep backend {sweep!r}: only 'batched' is ported")
+    if sweep not in ("batched", "sharded"):
+        raise ValueError(
+            f"unknown sweep backend {sweep!r}: expected 'batched' or 'sharded'")
+    if mesh is not None and sweep != "sharded":
+        raise ValueError(
+            "mesh= is only meaningful with sweep='sharded'; the batched "
+            "sweep would silently ignore it")
+    n_shard = 1
+    if sweep == "sharded":
+        from repro_torch.distributed.emvs import (
+            make_segment_mesh,
+            process_segments_sharded,
+            segment_axis_size,
+        )
+
+        if mesh is None:
+            mesh = make_segment_mesh()
+        n_shard = segment_axis_size(mesh)
     frames = _frames_on(frames, resolve_device(device))
     segs = plan_segments(frames, dsi_cfg, opts)
     if not segs:
@@ -779,8 +808,14 @@ def run_emvs(
     out: dict[tuple[int, int], tuple[SegmentResult, PointCloud]] = {}
     for cap in sorted(by_cap):
         seg_list = by_cap[cap]
-        batch = pad_segments(frames, seg_list, cap)
-        dsis, dms = process_segments_batched(cam, dsi_cfg, batch, opts)
+        # a sharded sweep needs S divisible by the mesh's segment axis:
+        # repeat the last segment (independent rows, discarded below)
+        run_list = seg_list + [seg_list[-1]] * (-len(seg_list) % n_shard)
+        batch = pad_segments(frames, run_list, cap)
+        if sweep == "sharded":
+            dsis, dms = process_segments_sharded(cam, dsi_cfg, batch, opts, mesh=mesh)
+        else:
+            dsis, dms = process_segments_batched(cam, dsi_cfg, batch, opts)
         pcs = depth_maps_to_points(cam, dms, SE3(batch.ref_R, batch.ref_t))
         for k, (start, end) in enumerate(seg_list):
             dm = DepthMap(dms.depth[k], dms.mask[k], dms.confidence[k])

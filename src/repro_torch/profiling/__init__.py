@@ -8,7 +8,11 @@
   affine per-backend fit (dispatch overhead + per-segment-row cost), and a
   measured-table lookup that falls back to the affine fit.
 - `recorder`: an opt-in online recorder wired into ``SweepDispatcher``
-  that feeds the table from live traffic and captures the dispatch trace.
+  that feeds the table from live traffic and captures the dispatch trace
+  the replayer (`repro_torch.serving.dispatch_replay`) re-simulates.
+
+``python -m repro_torch.profiling.calibrate`` fits the model from a table
+and prints a calibration report (`calibrate`).
 """
 
 from repro_torch.profiling.cost_table import (

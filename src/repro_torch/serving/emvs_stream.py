@@ -52,10 +52,12 @@ on the host, on the integer/nearest datapaths, for every chunking,
 dispatch policy, pose interleaving and session schedule
 (tests/test_torch_streaming.py). The engines run on the card unless the
 caller passes `device="cpu"`; each dispatch there runs the sweep kernel
-B1 and the depth max/argmax kernel B2 on the kernel formulation. Only the
-batched sweep is ported: `StreamConfig(sweep="sharded")` raises
-(ROADMAP A5), and the reference's `kernel_interpret` knob has no
-counterpart (the tensor's device picks a kernel or its plain version).
+B1 and the depth max/argmax kernel B2 on the kernel formulation.
+`StreamConfig(sweep="sharded")` splits each dispatch's segment axis over
+the ranks of a `torch.distributed` mesh (`mesh=`, default every rank of the
+initialized default process group); every rank runs the same engine on the
+same stream. The reference's `kernel_interpret` knob has no counterpart
+(the tensor's device picks a kernel or its plain version).
 """
 from __future__ import annotations
 
@@ -237,8 +239,13 @@ class StreamConfig:
     # missing pose chunks recovers. None = unbounded (trusted tracker).
     max_stalled_frames: int | None = None
     # Segment-sweep backend: "batched" runs each dispatch as one bucket
-    # sweep (`process_segments_batched`). The reference's "sharded"
-    # backend is not ported yet (ROADMAP A5) and raises.
+    # sweep (`process_segments_batched`); "sharded" splits the segment
+    # axis over the ranks of the engine's mesh
+    # (`repro_torch.distributed.emvs.process_segments_sharded`), so
+    # concurrent segments vote on different ranks. With "sharded" the
+    # engine rounds every segment bucket up to a multiple of the mesh's
+    # segment-axis size, keeping dispatch shapes shard-stable over an
+    # unbounded stream.
     sweep: str = "batched"
     # Policy for frame mid-times outside the received trajectory span
     # (only reachable at the stream edges): "warn" clamps to the span
@@ -283,13 +290,10 @@ class StreamConfig:
             raise ValueError(
                 f"max_stalled_frames must be >= 1 (or None for unbounded), "
                 f"got {self.max_stalled_frames}")
-        if self.sweep == "sharded":
+        if self.sweep not in ("batched", "sharded"):
             raise ValueError(
-                "sweep='sharded' is not ported: the segment-parallel backend "
-                "waits for torch.distributed (ROADMAP A5); use 'batched'")
-        if self.sweep != "batched":
-            raise ValueError(
-                f"unknown sweep backend {self.sweep!r}: expected 'batched'")
+                f"unknown sweep backend {self.sweep!r}: expected 'batched' "
+                f"or 'sharded'")
         if self.pose_extrapolation not in POSE_EXTRAPOLATION_POLICIES:
             raise ValueError(
                 f"unknown pose_extrapolation policy "
@@ -357,13 +361,13 @@ class EMVSStreamEngine:
                  traj: Trajectory | TrajectoryBuffer | None,
                  opts: EMVSOptions = EMVSOptions(),
                  stream_cfg: StreamConfig = StreamConfig(), *,
-                 cost_model=None, profiler=None, device=None):
+                 mesh=None, cost_model=None, profiler=None, device=None):
         self.cam = cam
         self.dsi_cfg = dsi_cfg
         self.opts = opts
         self.stream_cfg = stream_cfg
         self._dispatcher = SweepDispatcher(cam, dsi_cfg, opts, stream_cfg,
-                                           cost_model=cost_model,
+                                           mesh=mesh, cost_model=cost_model,
                                            profiler=profiler, device=device)
         self._session = StreamSession("cam0", self._dispatcher, traj)
 
@@ -372,6 +376,10 @@ class EMVSStreamEngine:
     @property
     def device(self):
         return self._dispatcher.device
+
+    @property
+    def mesh(self):
+        return self._dispatcher.mesh
 
     @property
     def _segment_buckets(self) -> tuple[int, ...]:
@@ -526,19 +534,23 @@ class MultiStreamEngine:
     def __init__(self, cam: CameraModel, dsi_cfg: DSIConfig,
                  opts: EMVSOptions = EMVSOptions(),
                  stream_cfg: StreamConfig = StreamConfig(), *,
-                 cost_model=None, profiler=None, device=None):
+                 mesh=None, cost_model=None, profiler=None, device=None):
         self.cam = cam
         self.dsi_cfg = dsi_cfg
         self.opts = opts
         self.stream_cfg = stream_cfg
         self.dispatcher = SweepDispatcher(cam, dsi_cfg, opts, stream_cfg,
-                                          cost_model=cost_model,
+                                          mesh=mesh, cost_model=cost_model,
                                           profiler=profiler, device=device)
         self._sessions: dict[str, StreamSession] = {}
 
     @property
     def device(self):
         return self.dispatcher.device
+
+    @property
+    def mesh(self):
+        return self.dispatcher.mesh
 
     @property
     def sessions(self) -> dict[str, StreamSession]:

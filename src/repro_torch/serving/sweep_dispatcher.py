@@ -6,7 +6,7 @@ everything N camera sessions share on one card: the
 (latency / throughput / adaptive, SLO-aware with a cost model) and
 fairness anchor rule (fifo / round_robin), the in-flight slots with
 back-pressure, the fixed S buckets and frame-capacity buckets that bound
-the dispatch shapes, and the batched sweep.
+the dispatch shapes, and the batched and sharded sweeps.
 
 Sessions (`repro_torch.serving.stream_session.StreamSession`) `enqueue`
 their closed segments tagged with themselves; the dispatcher forms head
@@ -34,6 +34,17 @@ stream: one sweep at the main bucket already fills the card. A sweep is
 ready when its event has completed (`event.query()`); a blocking harvest
 waits on the event (`event.synchronize()`). On the CPU there is no event,
 and a sweep is ready when it returns.
+
+The sharded backend (`StreamConfig(sweep="sharded")`) splits each
+dispatch's segment axis over the ranks of a `torch.distributed` mesh
+(`repro_torch.distributed.emvs.process_segments_sharded`); every rank runs
+the same engine on the same stream. Its collectives are ordered on the
+current stream like the sweep, so `_dispatch` still never waits. The ranks
+must take the same dispatch decisions or the collectives hang: on the CPU
+(gloo) a sweep is ready when it returns, on every rank alike, and on one
+card the mesh has one rank; readiness read by `event.query()` on several
+cards could differ between ranks, so a CUDA mesh of more than one rank is
+refused.
 """
 from __future__ import annotations
 
@@ -105,13 +116,21 @@ class _LatencyHist:
                 "bin_edges_s": list(_HIST_EDGES_S), "bins": list(self.bins)}
 
 
+def shard_buckets(segment_buckets, n: int) -> tuple[int, ...]:
+    """S buckets for a segment axis of `n` ranks: each rounded up to a
+    multiple of n, deduplicated, ascending."""
+    return tuple(sorted({-(-b // n) * n for b in segment_buckets}))
+
+
 def enumerate_variant_space(stream_cfg, max_segment_frames: int, *,
+                            mesh_segments: int = 1,
                             formulation: str = "matmul") -> dict:
     """Statically enumerate the dispatcher's variant space.
 
     Every sweep the dispatcher can stage has its shapes determined by
     exactly two numbers: the padded S bucket and the frame capacity. This
-    reproduces the dispatcher's bucket arithmetic (`bucket_capacity`
+    reproduces the dispatcher's bucket arithmetic (shard rounding for the
+    sharded backend over `mesh_segments` ranks, `bucket_capacity`
     padding) as a pure function of config: the |S buckets| x |capacities|
     bound on distinct dispatch shapes. Returns `{"s_buckets",
     "capacities", "variants", "backend"}` with `variants` the full
@@ -124,7 +143,10 @@ def enumerate_variant_space(stream_cfg, max_segment_frames: int, *,
 
     if max_segment_frames <= 0:
         raise ValueError("max_segment_frames must be positive")
-    s_buckets = tuple(stream_cfg.segment_buckets)
+    if stream_cfg.sweep == "sharded":
+        s_buckets = shard_buckets(stream_cfg.segment_buckets, max(1, int(mesh_segments)))
+    else:
+        s_buckets = tuple(stream_cfg.segment_buckets)
     capacities = tuple(sorted({bucket_capacity(f)
                                for f in range(1, max_segment_frames + 1)}))
     variants = tuple((s, c) for s in s_buckets for c in capacities)
@@ -189,11 +211,15 @@ class SweepDispatcher:
     them all, which is exactly what makes cross-stream coalescing
     possible. Sweeps run on `device`: the card unless the caller passes
     "cpu" (`repro_torch.device.resolve_device`).
+
+    The sharded backend rounds every S bucket up to a multiple of the
+    mesh's segment-axis size so dispatch shapes stay shard-stable; the
+    batched backend rejects a stray `mesh=`.
     """
 
     def __init__(self, cam: CameraModel, dsi_cfg: DSIConfig,
                  opts: EMVSOptions = EMVSOptions(),
-                 stream_cfg=None, *, cost_model=None, profiler=None,
+                 stream_cfg=None, *, mesh=None, cost_model=None, profiler=None,
                  device=None):
         if stream_cfg is None:
             from repro_torch.serving.emvs_stream import StreamConfig
@@ -204,7 +230,28 @@ class SweepDispatcher:
         self.dsi_cfg = dsi_cfg
         self.opts = opts
         self.stream_cfg = stream_cfg
+        self.mesh = None
         self._segment_buckets = stream_cfg.segment_buckets
+        if stream_cfg.sweep == "sharded":
+            from repro_torch.distributed.emvs import make_segment_mesh, segment_axis_size
+
+            self.mesh = mesh if mesh is not None else make_segment_mesh()
+            n = segment_axis_size(self.mesh)
+            if n > 1 and self.mesh.device_type == "cuda":
+                raise NotImplementedError(
+                    f"a streaming engine over a CUDA mesh of {n} ranks is not "
+                    f"supported: each rank reads a sweep's readiness from its own "
+                    f"CUDA event, so the ranks could take different dispatch "
+                    f"decisions and their collectives would hang; use one card "
+                    f"or gloo ranks on the CPU")
+            # shard-stable S buckets: every dispatch's segment axis must
+            # divide the mesh
+            self._segment_buckets = shard_buckets(stream_cfg.segment_buckets, n)
+        elif mesh is not None:
+            raise ValueError(
+                "mesh= is only meaningful with "
+                "StreamConfig(sweep='sharded'); the batched sweep "
+                "would silently ignore it")
         # Cost-aware planning: the planner owns the partition rules;
         # `cost_model` (duck-typed: predict_sweep_s(key) -> float | None)
         # lets the SLO-aware adaptive policy predict queue-drain time,
@@ -509,9 +556,24 @@ class SweepDispatcher:
 
     def variant_space(self, max_segment_frames: int) -> dict:
         """The live dispatcher's variant space (see
-        `enumerate_variant_space`)."""
+        `enumerate_variant_space`), with the mesh's segment-axis size when
+        the sharded backend is active."""
+        n = 1
+        if self.mesh is not None:
+            from repro_torch.distributed.emvs import segment_axis_size
+
+            n = segment_axis_size(self.mesh)
         return enumerate_variant_space(self.stream_cfg, max_segment_frames,
+                                       mesh_segments=n,
                                        formulation=self.opts.formulation)
+
+    def _sweep(self, batch: SegmentBatch) -> tuple[Tensor, DepthMap]:
+        if self.mesh is not None:
+            from repro_torch.distributed.emvs import process_segments_sharded
+
+            return process_segments_sharded(self.cam, self.dsi_cfg, batch, self.opts,
+                                            mesh=self.mesh)
+        return process_segments_batched(self.cam, self.dsi_cfg, batch, self.opts)
 
     def _dispatch(self, group, cap: int) -> None:
         """Stage and dispatch one tagged group without waiting for the
@@ -551,8 +613,7 @@ class SweepDispatcher:
         if on_card:
             started = torch.cuda.Event(enable_timing=True)
             started.record()
-        dsis, dms = process_segments_batched(self.cam, self.dsi_cfg, batch,
-                                             self.opts)
+        dsis, dms = self._sweep(batch)
         pcs = depth_maps_to_points(self.cam, dms, SE3(batch.ref_R, batch.ref_t))
         # each row's fraction of DSI voxels at the int16 store limits, for
         # the owning session's "dsi_saturation_peak" monitor (the live

@@ -17,10 +17,15 @@ Each flash-attention case also asserts the route it took (bf16 with D a
 multiple of 16: tensor cores; otherwise CUDA cores) by its launch counter.
 The streaming engine on the card equals `run_emvs` on host-aggregated
 frames bitwise, launches B1 and B2 once per dispatch, stages each batch
-from pinned memory and makes no host sync in `_dispatch`.
+from pinned memory and makes no host sync in `_dispatch`. The sharded
+backend runs over a world-size-1 NCCL group (a `FileStore` in a temporary
+directory): bitwise the batched backend, B1 and B2 once per bucket sweep,
+int16 and bool gathered exactly, and the stream engine refuses a CUDA mesh
+of more than one rank.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -28,6 +33,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import pipeline as tp
 from repro_torch.core.camera import CAMERAS, CameraModel
 from repro_torch.core.dsi import DSIConfig
 from repro_torch.core.pipeline import EMVSOptions, run_emvs
@@ -485,6 +491,120 @@ def test_cuda_batch_staged_from_pinned_memory(dev):
         assert inf.staging is not None and all(t.is_pinned() for t in inf.staging)
         assert inf.staging.xy.shape[0] == inf.dsis.shape[0]
         assert inf.saturation.is_pinned() and inf.done is not None and inf.done.query()
+
+
+def _buckets(frames, cfg, opts) -> int:
+    return len({tp.bucket_capacity(b - a) for a, b in tp.plan_segments(frames, cfg, opts)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cuda_run_emvs_sharded_matches_batched(dev, quantized):
+    """`run_emvs(sweep="sharded")` over one NCCL rank equals the batched
+    backend bitwise on dsi, depth, mask and the point clouds."""
+    from repro_torch.distributed.emvs import local_process_group, make_segment_mesh
+
+    cam, traj, events, frames, cfg, opts = _stream_scene()
+    opts = dataclasses.replace(opts, quantized=quantized)
+    want = run_emvs(cam, cfg, frames, opts, device=dev)
+    with local_process_group(dev):
+        mesh = make_segment_mesh()
+        assert mesh.device_type == "cuda" and tuple(mesh.shape) == (1,)
+        got = run_emvs(cam, cfg, frames, opts, sweep="sharded", mesh=mesh, device=dev)
+    assert len(got.segments) == len(want.segments) >= 2
+    for a, b, ca, cb in zip(got.segments, want.segments, got.clouds, want.clouds):
+        assert a.frame_range == b.frame_range and a.dsi.dtype == b.dsi.dtype
+        for x, y in ((a.dsi, b.dsi), (a.depth_map.depth, b.depth_map.depth),
+                     (a.depth_map.mask, b.depth_map.mask),
+                     (a.depth_map.confidence, b.depth_map.confidence),
+                     (ca.points, cb.points), (ca.valid, cb.valid)):
+            assert x.is_cuda and torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_launches_b1_b2_once_per_bucket(dev):
+    from repro_torch.distributed.emvs import local_process_group
+
+    cam, traj, events, frames, cfg, opts = _stream_scene()
+    with local_process_group(dev):
+        run_emvs(cam, cfg, frames, opts, sweep="sharded", device=dev)  # loads the kernels
+        torch.cuda.synchronize()
+        cuda.launch_counts.clear()
+        run_emvs(cam, cfg, frames, opts, sweep="sharded", device=dev)
+        torch.cuda.synchronize()
+    # one launch of each per bucket sweep, not one per segment
+    n = _buckets(frames, cfg, opts)
+    assert len(tp.plan_segments(frames, cfg, opts)) > n >= 1
+    assert cuda.launch_counts["backproject_vote"] == cuda.launch_counts["depth_argmax"] == n
+
+
+@pytest.mark.gpu
+def test_cuda_gathers_int16_and_bool_exactly(dev):
+    """NCCL carries no int16: it goes as bytes and comes back exact."""
+    from repro_torch.distributed.emvs import all_gather_rows, local_process_group
+
+    with local_process_group(dev):
+        group = torch.distributed.group.WORLD
+        x = torch.randint(-32768, 32767, (3, 5, 7), dtype=torch.int16, device=dev)
+        m = torch.rand(3, 5, 7, device=dev) > 0.5
+        for t in (x, m, x.float(), x[:, 1:]):
+            got = all_gather_rows(t, group)
+            assert got.dtype == t.dtype and torch.equal(got, t)
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_stream_dispatch_makes_no_host_sync(dev):
+    """`StreamConfig(sweep="sharded")` on one NCCL rank: the collectives are
+    ordered on the stream like the sweep, `_dispatch` makes no host sync,
+    and the results equal `run_emvs` bitwise."""
+    from repro_torch.distributed.emvs import local_process_group
+
+    cam, traj, events, frames, cfg, opts = _stream_scene()
+    ref = run_emvs(cam, cfg, frames, opts, device=dev)
+    with local_process_group(dev):
+        warm = _stream_engine(dev, cam, traj, cfg, opts, sweep="sharded")
+        warm.push(events)  # loads the kernels
+        warm.flush()
+        engine = _stream_engine(dev, cam, traj, cfg, opts, sweep="sharded", max_inflight=8)
+        dispatcher = engine._dispatcher
+        dispatch = dispatcher._dispatch
+        calls = []
+
+        def strict(group, cap):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                dispatch(group, cap)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            calls.append(len(group))
+
+        dispatcher._dispatch = strict
+        cuda.launch_counts.clear()
+        for c in iter_event_chunks(events, 997):
+            engine.push(c)
+        got = engine.flush()
+    assert calls and sum(calls) == len(got.segments)
+    assert cuda.launch_counts["backproject_vote"] == engine.stats["dispatches"]
+    for a, b in zip(got.segments, ref.segments):
+        assert torch.equal(a.dsi, b.dsi)
+        assert torch.equal(a.depth_map.mask, b.depth_map.mask)
+
+
+@pytest.mark.gpu
+def test_cuda_stream_engine_refuses_a_multi_rank_cuda_mesh(dev, monkeypatch):
+    """With the segment axis reported as 2 ranks on a CUDA mesh, the
+    stream engine raises: rank-local readiness could split the schedule."""
+    from repro_torch.distributed import emvs as t_emvs
+
+    cam, traj, events, frames, cfg, opts = _stream_scene()
+    with t_emvs.local_process_group(dev):
+        mesh = t_emvs.make_segment_mesh()
+        monkeypatch.setattr(t_emvs, "segment_axis_size", lambda mesh, axis_name="segments": 2)
+        with pytest.raises(NotImplementedError, match="readiness"):
+            _stream_engine(dev, cam, traj, cfg, opts, sweep="sharded")
+        monkeypatch.undo()
+        assert _stream_engine(dev, cam, traj, cfg, opts, sweep="sharded").mesh is not None
+        assert mesh.device_type == "cuda"
 
 
 def _to(tree, dev):

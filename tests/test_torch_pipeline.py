@@ -161,7 +161,13 @@ def test_segmentation_edge_cases():
         tp.pad_segments(frames, [], 4)
     with pytest.raises(ValueError, match="kernel_interpret"):
         interop.options_from_dict({"kernel_interpret": True})
-    with pytest.raises(ValueError, match="only 'batched'"):
+    # the reference's checks and messages; "sharded" needs a process group
+    with pytest.raises(ValueError) as want:
+        j_run_emvs(JCamera(), JDSIConfig(), None, sweep="tiled")
+    with pytest.raises(ValueError) as got:
+        tp.run_emvs(tp.CameraModel(), tp.DSIConfig(), frames, sweep="tiled", device="cpu")
+    assert str(got.value) == str(want.value)
+    with pytest.raises(RuntimeError, match="init_process_group"):
         tp.run_emvs(tp.CameraModel(), tp.DSIConfig(), frames, sweep="sharded",
                     device="cpu")
 
