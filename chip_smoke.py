@@ -88,15 +88,31 @@ Phases, each asserting, none caught:
      (results/cost_table_h100.json), prints its rows and fails unless
      `dispatch_replay.check_slo_burst` passes on it, and prints the
      calibration report of `repro_torch.profiling.calibrate` on that table.
-     The 4096-event chunk was chosen after the benchmark's headline gate
-     failed on the card at the reference's default of one 1024-event frame
-     per chunk (first depth map 39.96 ms against an offline wall of
-     36.96 ms on an H100 80GB HBM3 at 700 W): the first segment waits for
-     about 21 pushes of host ingest at about 1 ms each. That shortfall is
-     an open fault of the port's ingest, not of the gate. `--main-path`
+     The benchmark runs at the reference's default of one 1024-event frame
+     per chunk; its headline gate (first depth map below the offline wall)
+     holds there since the oracle's poses are interpolated on the host
+     (`events.trajectory_stream.PoseInterpolator`), and the phase prints
+     the host ingest per push. `--main-path`
      holds the dispatch-policy gate at the smoke's min_ratio 0.85 and 3
      sessions, not the reference's full-size 1.0 and 4: its bursts of 6
      segments save one dispatch, less than the wall's jitter between runs;
+  9. (after 4f) the port's tooling on the card: the EMVS fusion ladder
+     (`repro_torch.benchmarks.roofline_report`) at the main path's largest
+     bucket, every rung's bound from `repro_torch.launch.roofline` beside
+     the measured device time of the unfused rung (the scatter
+     formulation's float32 votes, the int16 storage round trip, B2; its
+     conf and zf must equal the fused rung's) and of the fused-store rung
+     (B1 then B2), CUDA graphs between events; the dry run
+     (`repro_torch.launch.dryrun.run_cell`) of eventor-davis240's emvs_rt
+     and emvs_seg and qwen3-8b's prefill_32k and decode_32k on fake CUDA
+     tensors: `torch.cuda.memory_allocated()` must not move, and emvs_seg's
+     B1 call must count the bytes of `roofline.sweep_bound`; the linter's
+     quick grid (`python -m repro_torch.analysis.lint --grid quick`) on
+     fake CUDA tensors must report no new finding against the port's
+     baseline; B1 at the linter's proof capacity (64 frames x 1024 events,
+     every event on one voxel of every plane: 65,536 votes) must equal its
+     plain version bitwise, float (65,536) and quantized (saturated at
+     32,767); a warm run_emvs launches B1 and B2 once per bucket;
   6. holds the flash-attention kernels against their plain version on the
      card, within the reference's tolerances (FLASH_TOL): the serving
      shapes (1, 32, S, 128) over (1, 8, S, 128) for S in 32, 128, 512,
@@ -137,6 +153,7 @@ when there is no CUDA device or the repository's `src/` is not beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -148,15 +165,9 @@ import types
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# the card's peaks and every kernel's bound live in
+# src/repro_torch/launch/roofline.py (H100 SXM datasheet figures)
 BILINEAR_ATOL, BILINEAR_RTOL = 1e-4, 1e-5
-# float32 operations per (valid event, plane) in the sweep kernel: per
-# coordinate a subtract, an FMA (2) and an add, then the vote's add
-B1_OPS_PER_PROJECTION = 9
-# per (pixel, plane) in the depth max/argmax: a compare and a select
-B2_OPS_PER_VOXEL = 2
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 # the reference's flash-attention tolerances (tests/test_kernels.py)
 FLASH_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 2e-5}
 # prefill logits, kernel vs plain attention, relative L2. In float32 the
@@ -764,21 +775,6 @@ def serve_phase(dev, card: str) -> dict:
             "weight_bytes": weight_bytes}
 
 
-def flash_bound(s: int, dtype) -> tuple[float, str]:
-    """Least ms for causal (1, 32, s, 128) over (1, 8, s, 128): q, k, v read
-    once and o written once, against the causal FLOPs of both products at
-    the card's peak for the dtype (bf16 tensor cores, float32 CUDA cores)."""
-    import torch
-
-    hq, hkv, d = 32, 8, 128
-    size = torch.finfo(dtype).bits // 8
-    nbytes = size * (2 * hq * s * d + 2 * hkv * s * d)
-    flops = 4 * hq * d * s * (s + 1) // 2
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def lm_timings(dev, card: str, lm: dict) -> list[dict]:
     """Phase 8: each B3 route beside its plain version and SDPA (device and
     host-inclusive times); prefill per bucket; a warm decode step; profiles
@@ -789,6 +785,7 @@ def lm_timings(dev, card: str, lm: dict) -> list[dict]:
     from repro_torch.kernels.flash_attention.kernel import route
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.roofline import HBM_BW, flash_bound
     from repro_torch.models import model as M
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -844,7 +841,7 @@ def lm_timings(dev, card: str, lm: dict) -> list[dict]:
         return M.decode_step_batched(params, state, tokens, lengths, cfg)
 
     ms = cuda_ms(step, reps=5, inner=3)
-    bound = 1e3 * lm["weight_bytes"] / HBM_BYTES_PER_S
+    bound = 1e3 * lm["weight_bytes"] / HBM_BW
     log(f"[{card}] decode step {LM_ARCH} {LM_SLOTS} slots: {ms:.2f} ms warm, bound "
         f"{bound:.2f} ms ({lm['weight_bytes'] / 1e9:.2f} GB of weights at 3.35 TB/s)")
     log_breakdown(card, "decode step", step, top=10)
@@ -906,14 +903,6 @@ def main_bucket(cam, dsi_cfg, frames, opts):
                             quantized=opts.quantized, frame_valid=batch.frame_valid)
 
 
-def sweep_bound(s: int, c: int, e: int, nz: int, w: int, h: int, n_valid: int):
-    """B1's least ms for S segments of C frames of E events onto Nz planes
-    of w x h, int16 store: x0, y0 (float32) and the bool mask per event,
-    phi, the int16 DSI; 9 float32 operations per valid (event, plane)."""
-    return emvs_bound(9 * s * c * e + 12 * s * c * nz + 2 * s * nz * h * w,
-                      B1_OPS_PER_PROJECTION * n_valid * nz)
-
-
 def davis346_phase(card: str, scene, main_cfg, opts) -> dict:
     """Phase 4b: the main path on a DAVIS346 (346x260, two row bands in
     B1), with phase 4's scene, trajectory and options: kernel == scatter
@@ -929,6 +918,7 @@ def davis346_phase(card: str, scene, main_cfg, opts) -> dict:
     from repro_torch.events.simulator import absrel, ground_truth_depth
     from repro_torch.kernels import cuda
     from repro_torch.kernels.backproject_vote.kernel import backproject_vote_cuda
+    from repro_torch.launch.roofline import sweep_bound
 
     cam = CAMERAS["davis346"]
     dsi_cfg = DSIConfig.for_camera(cam, num_planes=main_cfg.num_planes,
@@ -1477,19 +1467,21 @@ def sharded_phase(card: str, cam, dsi_cfg, opts, events, frames, traj) -> dict:
         log(f"make_emvs_step on a (1, 1) mesh, segment {segs[0]} ({b - a} frames): "
             f"(max |dsi - process_segment's|, mask pixels that differ) {step_errs}")
 
-    # the streaming benchmark at the main path's size and phase 4e's chunks:
-    # the cost table, the burst replay gate, the calibration report. Not the
-    # reference's one frame per chunk: there the first depth map failed the
-    # headline gate on the card (host ingest per push; see the docstring)
+    # the streaming benchmark at the main path's size and the reference's
+    # one 1024-event frame per chunk: its headline gate (first depth map
+    # below the offline wall), the cost table, the burst replay gate, the
+    # calibration report
     rec = streaming_latency.main([
-        "--main-path", "--chunk-frames", str(STREAM_CHUNKS[0] // 1024),
-        "--cost-table", STREAM_COST_TABLE])
+        "--main-path", "--chunk-frames", "1", "--cost-table", STREAM_COST_TABLE])
     gates = rec["cost_model"]["slo_burst_gates"]
     assert gates and not any("failure" in g for g in gates), gates
-    log(f"[{card}] streaming_latency --main-path: first depth map "
-        f"{1e3 * rec['streaming_latency']['first_depth_latency_s']:.2f} ms, stream "
-        f"{1e3 * rec['streaming_latency']['streaming_end_to_end_s']:.2f} ms against offline "
-        f"{1e3 * rec['streaming_latency']['offline_end_to_end_s']:.2f} ms; cost table rows "
+    head = rec["streaming_latency"]
+    assert head["chunk_events"] == 1024, head["chunk_events"]
+    log(f"[{card}] streaming_latency --main-path --chunk-frames 1: first depth map "
+        f"{1e3 * head['first_depth_latency_s']:.2f} ms, stream "
+        f"{1e3 * head['streaming_end_to_end_s']:.2f} ms against offline "
+        f"{1e3 * head['offline_end_to_end_s']:.2f} ms; host ingest per push "
+        f"{head['ingest_ms_per_push']:.3f} ms; cost table rows "
         + json.dumps(rec["cost_model"]["entries"]))
     log("check_slo_burst on that table: " + "; ".join(
         f"[{g['backend']}] throughput {g['throughput']['dispatch_count']} dispatches, "
@@ -1501,11 +1493,160 @@ def sharded_phase(card: str, cam, dsi_cfg, opts, events, frames, traj) -> dict:
     return {"launches": launches}
 
 
-def emvs_bound(nbytes: int, nops: int) -> tuple[float, str]:
-    """Least ms for `nbytes` of device memory traffic and `nops` float32
-    operations on the card, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
+    """Phase 9: the port's tooling on the card (see the module docstring):
+    the fusion ladder at the main bucket with two rungs measured, the dry
+    run of four cells on fake CUDA tensors, the quick lint grid on fake
+    CUDA tensors, B1's saturating store at the lint's proof capacity, and
+    the launches of a warm run_emvs."""
+    import torch
+
+    from repro_torch.analysis import lint
+    from repro_torch.benchmarks.roofline_report import (
+        MAIN_BUCKET,
+        MAIN_BUCKET_SEGMENTS,
+        fusion_report,
+    )
+    from repro_torch.benchmarks.summarize_dryrun import fmt_row
+    from repro_torch.core import dsi as dsi_lib
+    from repro_torch.core.pipeline import bucket_capacity, plan_segments, run_emvs
+    from repro_torch.core.voting import vote_scatter
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.backproject_vote.kernel import backproject_vote_cuda
+    from repro_torch.kernels.backproject_vote.ref import backproject_vote_ref
+    from repro_torch.kernels.local_max.kernel import depth_argmax_cuda
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rf
+    from repro_torch.quant.policies import TABLE1
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    # 9a. the fusion ladder at the main bucket: every rung's bound; the
+    # unfused rung (the scatter formulation's float32 votes, the int16
+    # storage round trip, B2) and the fused-store rung (B1 then B2) measured
+    xy0, valid, phi = main_bucket(cam, dsi_cfg, frames, opts)
+    s, c, e = valid.shape
+    nz, h, w = dsi_cfg.shape
+    shape = dict(nz=nz, h=h, w=w, events=e, frames=c)
+    assert (shape, s) == (MAIN_BUCKET, MAIN_BUCKET_SEGMENTS), (shape, s)
+    rep = fusion_report(shape, s)
+    assert not rep["violations"], rep["violations"]
+    x0, y0 = xy0[..., 0].contiguous(), xy0[..., 1].contiguous()
+    weights = valid.to(torch.float32)
+
+    def fused_store():
+        return depth_argmax_cuda(backproject_vote_cuda(
+            x0, y0, valid, phi, cx=cam.cx, cy=cam.cy, w=w, h=h, quantized=True))
+
+    def unfused():
+        dsi = torch.zeros((s, nz, h, w), dtype=torch.float32, device=x0.device)
+        for k in range(c):
+            a, bx, by = phi[:, k, :, 0:1], phi[:, k, :, 1:2], phi[:, k, :, 2:3]
+            x_i = torch.addcmul(bx, a, x0[:, k, None, :] - cam.cx) + cam.cx
+            y_i = torch.addcmul(by, a, y0[:, k, None, :] - cam.cy) + cam.cy
+            x_i, y_i = TABLE1.quantize_plane_coords(x_i, y_i)
+            dsi = vote_scatter(dsi, x_i, y_i, w=w, h=h,
+                               weights=weights[:, k, None, :].expand(x_i.shape))
+        return depth_argmax_cuda(dsi_lib.to_storage(dsi))
+
+    for got, want, name in zip(unfused(), fused_store(), ("conf", "zf")):
+        assert_equal(got, want, f"fusion ladder: unfused {name} vs fused-store")
+    measured = {"unfused": graph_ms(unfused, calls=2), "fused-store": graph_ms(fused_store)}
+    ladder = []
+    for st in rep["stages"]:
+        name = st["name"]
+        row = {"rung": name, "hbm_bytes": rep["hbm_bytes"][name],
+               "bound_ms": 1e3 * rep["bound_s"][name], "bound_gap": st["bound_gap"],
+               "device_ms": measured.get(name)}
+        ladder.append(row)
+        log(f"[{card}] fusion ladder at S={s} C={c} E={e} Nz={nz} {w}x{h}: {name:<12} "
+            f"{row['hbm_bytes'] / 1e6:8.2f} MB, bound {row['bound_ms']:.4f} ms "
+            f"(gap to the compute roof {row['bound_gap']:.2f})"
+            + (f", device {row['device_ms']:.4f} ms (CUDA graph), bound share "
+               f"{row['bound_ms'] / row['device_ms']:.3f}" if row["device_ms"] else
+               ", not measured (detection is not folded into B1)"))
+    out["ladder"] = ladder
+
+    # 9b. the dry run of four cells on fake CUDA tensors: nothing allocated,
+    # B1's bytes in emvs_seg those of launch/roofline.py::sweep_bound
+    gc.collect()  # earlier phases' garbage must not be freed during the count
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    recs = {}
+    for arch, cell in (("eventor-davis240", "emvs_rt"), ("eventor-davis240", "emvs_seg"),
+                       ("qwen3-8b", "prefill_32k"), ("qwen3-8b", "decode_32k")):
+        rec = dryrun.run_cell(arch, cell, "single")
+        assert "skipped" not in rec and rec["device"] == "cuda", rec
+        recs[cell] = rec
+        log(f"dry run {fmt_row(rec)} kernels "
+            f"{sorted({k['op'] for k in rec['kernels']})}")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    assert after == before, f"the dry run allocated {after - before} B on the card"
+    seg = recs["emvs_seg"]
+    b1 = [k for k in seg["kernels"] if k["op"].startswith("repro_torch.backproject_vote")]
+    want = rf.sweep_bytes(1, 256, 1024, 256, 240, 180)
+    assert len(b1) == 1 and b1[0]["bytes"] == want, (b1, want)
+    log(f"dry run: memory_allocated {before} B before and after; emvs_seg's B1 call "
+        f"{b1[0]['bytes']} B == sweep_bound's bytes; emvs votes {seg['emvs_votes']}")
+    out["dry_run"] = {cell: {"flops": r["roofline"]["flops"],
+                             "bytes_hbm": r["roofline"]["bytes_hbm"],
+                             "dominant": r["roofline"]["dominant"],
+                             "peak_temp_bytes": r["memory"]["peak_temp_bytes"],
+                             "trace_s": r["trace_s"]} for cell, r in recs.items()}
+
+    # 9c. the linter's quick grid on fake CUDA tensors: no new finding
+    lint_json = os.path.join(ROOT, "results", "lint_quick_cuda.json")
+    os.makedirs(os.path.dirname(lint_json), exist_ok=True)
+    t0 = time.perf_counter()
+    rc = lint.main(["--grid", "quick", "--json", lint_json])
+    with open(lint_json) as f:
+        found = json.load(f)
+    assert rc == 0 and not found["new"], found["new"]
+    log(f"lint --grid quick on fake CUDA tensors: {len(found['report']['entries'])} programs, "
+        f"no new finding, {len(found['suppressed'])} suppressed by the port's baseline, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 9d. the lint's proof case on the real kernel: a full capacity of frames
+    # with every event on one voxel of every plane overflows int16, so the
+    # int32 accumulator must saturate the store
+    cap, ev = lint.PROOF_CAPACITY_FRAMES, 1024
+    px, py = 100.0, 50.0
+    dev = x0.device
+    px0 = torch.full((1, cap, ev), px, device=dev)
+    py0 = torch.full((1, cap, ev), py, device=dev)
+    pvalid = torch.ones((1, cap, ev), dtype=torch.bool, device=dev)
+    pphi = torch.zeros((1, cap, nz, 3), device=dev)
+    pphi[..., 0] = 1.0
+    pxy = torch.stack([px0, py0], -1)
+    plain = backproject_vote_ref(pxy, pvalid, pphi, cx=cam.cx, cy=cam.cy, w=w, h=h,
+                                 quantize_plane_coords=True)
+    for quantized in (False, True):
+        got = backproject_vote_cuda(px0, py0, pvalid, pphi, cx=cam.cx, cy=cam.cy, w=w,
+                                    h=h, quantized=quantized)
+        want = dsi_lib.to_storage(plain) if quantized else plain
+        assert_equal(got, want, f"B1 saturation case, quantized={quantized}")
+        peak = float(got[0, :, int(py), int(px)].float().min())
+        assert peak == (32767.0 if quantized else float(cap * ev)), peak
+    log(f"B1 at {cap} frames x {ev} events on one voxel of each of {nz} planes: "
+        f"{cap * ev} votes; the float store holds {cap * ev}, the int16 store "
+        "saturates at 32767; both bitwise the plain version")
+
+    # 9e. a warm run_emvs launches B1 and B2 once per bucket (the custom
+    # operations add no launch)
+    n_buckets = len({bucket_capacity(b - a) for a, b in plan_segments(frames, dsi_cfg, opts)})
+    run_emvs(cam, dsi_cfg, frames, opts)
+    torch.cuda.synchronize()
+    cuda.launch_counts.clear()
+    run_emvs(cam, dsi_cfg, frames, opts)
+    torch.cuda.synchronize()
+    warm = dict(cuda.launch_counts)
+    assert warm == {"backproject_vote": n_buckets, "depth_argmax": n_buckets}, warm
+    log(f"warm run_emvs launches {warm} ({n_buckets} buckets)")
+    out["warm_launches"] = warm
+    log(f"tooling phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1529,6 +1670,7 @@ def main() -> int:
     from repro_torch.kernels.backproject_vote.ref import backproject_vote_ref
     from repro_torch.kernels.local_max.kernel import depth_argmax_cuda
     from repro_torch.kernels.local_max.ref import depth_argmax_ref
+    from repro_torch.launch.roofline import depth_argmax_bound, sweep_bound
 
     # 1. the card
     card = card_line()
@@ -1632,8 +1774,7 @@ def main() -> int:
 
         sb = v.shape[0]
         b1_bound, b1_by = sweep_bound(sb, c, e, nz, w, h, int(v.sum()))
-        b2_bound, b2_by = emvs_bound(2 * sb * nz * h * w + 8 * sb * h * w,
-                                     B2_OPS_PER_VOXEL * sb * nz * h * w)
+        b2_bound, b2_by = depth_argmax_bound(sb, nz, h, w)
         row = {"S": sb, "b1_device_ms": graph_ms(b1), "b1_eager_ms": cuda_ms(b1, reps=7, inner=5),
                "b1_bound_ms": b1_bound, "b1_bound_by": b1_by,
                "b2_device_ms": graph_ms(b2), "b2_eager_ms": cuda_ms(b2, reps=7, inner=5),
@@ -1682,6 +1823,7 @@ def main() -> int:
     log(f"DAVIS346, paper tables and examples: {time.perf_counter() - t0:.1f} s")
     stream = streaming_phase(card, cam, dsi_cfg, opts, events, traj)
     sharded = sharded_phase(card, cam, dsi_cfg, opts, events, frames, traj)
+    tooling = tooling_phase(card, cam, dsi_cfg, opts, frames)
 
     # 6. the flash-attention kernel vs its plain version
     log("flash attention kernel vs plain:")
@@ -1708,6 +1850,8 @@ def main() -> int:
          "n_bands": n_bands, "device_ms_davis346": d346["device_ms"],
          "bound_ms_davis346": d346["bound_ms"], "n_bands_davis346": d346["n_bands"],
          "bulk_copy_instructions": n_bulk,
+         "launches_warm": tooling["warm_launches"]["backproject_vote"],
+         "fusion_ladder": tooling["ladder"],
          "shape": f"{shape_note} int16; ms host-inclusive eager, device_ms a CUDA graph",
          "shape_davis346": f"{d346['shape']} int16, device time"},
         {"name": "depth_argmax", "route": "cuda",
@@ -1716,6 +1860,7 @@ def main() -> int:
          "launches": launches["depth_argmax"], "max_abs_err": err2,
          "launches_streaming": stream["launches"]["depth_argmax"],
          "launches_sharded": sharded["launches"]["depth_argmax"],
+         "launches_warm": tooling["warm_launches"]["depth_argmax"],
          "ms": main_row["b2_eager_ms"], "plain_ms": main_row["b2_plain_ms"],
          "bound_ms": main_row["b2_bound_ms"], "bound_by": main_row["b2_bound_by"],
          "library_ms": None, "device_ms": main_row["b2_device_ms"],

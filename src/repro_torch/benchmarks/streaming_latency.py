@@ -162,20 +162,31 @@ def _warm_variants(seq: Sequence, frames, segs, scfg) -> None:
 
 
 def _stream_once(seq: Sequence, scfg, chunk_events: int, profiler=None):
-    """One timed stream: per-segment completion timeline and stats."""
+    """One timed stream: per-segment completion timeline and stats, with
+    the host ingest per push: the pushes' wall less the time spent inside
+    the dispatcher's `_dispatch` (staging and enqueueing sweeps), over the
+    pushes."""
     engine = EMVSStreamEngine(seq.cam, seq.dsi_cfg, seq.traj, seq.opts, scfg,
                               profiler=profiler, device=seq.dev)
     timeline: list[tuple[float, tuple[int, int]]] = []
+    push_s, pushes = 0.0, 0
     t0 = time.perf_counter()
     for c in iter_event_chunks(seq.ev, chunk_events):
-        for seg in engine.push(c):
-            timeline.append((time.perf_counter() - t0, seg.frame_range))
+        t_push = time.perf_counter()
+        done = engine.push(c)
+        now = time.perf_counter()
+        push_s += now - t_push
+        pushes += 1
+        for seg in done:
+            timeline.append((now - t0, seg.frame_range))
+    ingest_s = push_s - engine._dispatcher.host_dispatch_s
     res = engine.flush()
     seq.sync()
     t_total = time.perf_counter() - t0
     seen = {fr for _, fr in timeline}
     timeline += [(t_total, s.frame_range) for s in res.segments if s.frame_range not in seen]
-    return res, t_total, timeline, engine.stats
+    return res, t_total, timeline, dict(engine.stats,
+                                        ingest_ms_per_push=1e3 * ingest_s / max(pushes, 1))
 
 
 def stream_with_pose_lag(seq: Sequence, scfg, lag_s: float, chunk_events: int):
@@ -487,7 +498,10 @@ def main(argv: list[str] | None = None) -> dict:
     seq = build_sequence("dry" if args.dry_run else "main" if args.main_path else "default",
                          args.device)
     loose = args.dry_run or args.main_path
-    repeats = 3 if args.dry_run else 5
+    # best of N per (profile, policy): on the main path one burst run's wall
+    # varies by a fifth between identical runs on the card's host, more than
+    # the one dispatch that coalescing saves there, so it takes more samples
+    repeats = 3 if args.dry_run else 9 if args.main_path else 5
     table_path = args.cost_table or os.path.join(
         "results", "cost_table_h100.json" if seq.dev.type == "cuda" else "cost_table_cpu.json")
     label = device_label(str(seq.dev))
@@ -524,6 +538,8 @@ def main(argv: list[str] | None = None) -> dict:
           f"{n_events / t_total / 1e6:>12.3f}")
     print(f"per-segment completion times (ms): "
           f"{', '.join(f'{1e3 * t:.2f}' for t, _ in timeline)}")
+    print(f"host ingest per push: {stream_stats['ingest_ms_per_push']:.3f} ms "
+          f"({chunk_events}-event chunks)")
     assert first < t_offline, (
         f"first-segment latency {first:.4f}s not below offline end-to-end {t_offline:.4f}s")
     print("OK: first depth map arrives before the offline path finishes")
@@ -588,6 +604,7 @@ def main(argv: list[str] | None = None) -> dict:
         "events": n_events, "segments": len(res.segments),
         "offline_end_to_end_s": t_offline, "streaming_end_to_end_s": t_total,
         "first_depth_latency_s": first, "first_depth_speedup": t_offline / first,
+        "chunk_events": chunk_events, "ingest_ms_per_push": stream_stats["ingest_ms_per_push"],
         "dispatch_shapes": variants, "dispatch_shape_bound": bound,
         "stream_stats": {k: v for k, v in stream_stats.items() if not isinstance(v, dict)},
         "pose_lag_sweep": pose_lag_rows}

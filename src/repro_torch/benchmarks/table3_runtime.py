@@ -20,8 +20,12 @@ the CPU, recorded as such. As in the paper's Fig 6, a normal frame takes
 max(P(Z0), P(Z0->Zi)&R) when the two stages overlap and a key frame their
 sum; Mev/s is 1024 events over that time.
 
-The reference's TPU v5e roofline projection is not carried over: its H100
-counterpart waits for the port's `launch/roofline.py` (ROADMAP A6).
+In place of the reference's TPU v5e roofline projection of the matmul
+formulation, the record projects B1 on the H100 from
+`launch/roofline.py::sweep_bound` (datasheet peaks; the segment's bytes
+and its 9 float32 operations per valid event and plane, per frame): the
+least time a frame could take and the event rate it allows, beside B1's
+measured share of it.
 Writes the `table3_runtime` section of `BENCH_emvs_torch.json`.
 """
 from __future__ import annotations
@@ -49,6 +53,7 @@ from repro_torch.events.aggregation import EventFrames
 from repro_torch.kernels.backproject_vote.kernel import backproject_vote_cuda
 from repro_torch.kernels.backproject_vote.ops import canonical_inputs
 from repro_torch.kernels.backproject_vote.ref import backproject_vote_ref
+from repro_torch.launch.roofline import sweep_bound, sweep_bytes, sweep_ops
 
 EVENTS_PER_FRAME = 1024
 PAPER = {"cpu_normal_Mev/s": 1.76, "eventor_normal_Mev/s": 1.86,
@@ -112,11 +117,24 @@ def run(device: str = "cuda") -> dict:
             "key Mev/s": EVENTS_PER_FRAME / key / 1e6,
         }
 
+    # the H100 projection of B1 over the segment, per frame
+    s_, c_, e_ = x0.shape
+    nz = sphi.shape[2]
+    n_valid = int(svalid.sum())
+    bound_ms, bound_by = sweep_bound(s_, c_, e_, nz, cam.width, cam.height, n_valid,
+                                     quantized=False)
+    t_bound = bound_ms / 1e3 / n_frames
+    h100 = {"bytes/frame": sweep_bytes(s_, c_, e_, nz, cam.width, cam.height,
+                                       quantized=False) / n_frames,
+            "ops/frame": sweep_ops(nz, n_valid) / n_frames,
+            "bound us/frame": t_bound * 1e6, "bound by": bound_by,
+            "bound Mev/s": EVENTS_PER_FRAME / t_bound / 1e6,
+            "B1 share of bound": t_bound / stage2["b1_eventor_analogue"]}
     label = device_label(device)
     timer = ("device time, CUDA graph of 20 calls between torch.cuda.Events"
              if dev.type == "cuda" else "host clock on the CPU")
     return {**{k: pack(v) for k, v in stage2.items()}, **label, "timer": timer,
-            "b1_frames": n_frames, "paper": PAPER}
+            "b1_frames": n_frames, "h100_projection": h100, "paper": PAPER}
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -129,6 +147,9 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"-- {name} --")
         for k, v in out[name].items():
             print(f"   {k:18s} {v:12.3f}")
+    print("-- H100 projection of B1 (launch/roofline.py, datasheet peaks) --")
+    for k, v in out["h100_projection"].items():
+        print(f"   {k:18s} {v:12.3f}" if isinstance(v, float) else f"   {k:18s} {v:>12}")
     p = out["paper"]
     print(f"paper reference: CPU {p['cpu_normal_Mev/s']} Mev/s @ {p['cpu_power_W']} W; "
           f"Eventor {p['eventor_normal_Mev/s']} Mev/s @ {p['eventor_power_W']} W")

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -32,25 +33,35 @@ class CameraModel:
     p2: float = 0.0
     k3: float = 0.0
 
-    @property
-    def K(self) -> Tensor:
-        """3x3 intrinsic matrix (float32, on the CPU)."""
-        return torch.tensor(
+    def K_values(self) -> np.ndarray:
+        """3x3 intrinsic matrix, float32 on the host (no tensor: readable
+        under any dispatch mode, a fake-tensor trace included)."""
+        return np.asarray(
             [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
-            dtype=torch.float32,
+            dtype=np.float32,
         )
 
-    @property
-    def K_inv(self) -> Tensor:
-        """Inverse intrinsics, each entry rounded once from a Python float."""
-        return torch.tensor(
+    def K_inv_values(self) -> np.ndarray:
+        """Inverse intrinsics, float32 on the host, each entry rounded once
+        from a Python float."""
+        return np.asarray(
             [
                 [1.0 / self.fx, 0.0, -self.cx / self.fx],
                 [0.0, 1.0 / self.fy, -self.cy / self.fy],
                 [0.0, 0.0, 1.0],
             ],
-            dtype=torch.float32,
+            dtype=np.float32,
         )
+
+    @property
+    def K(self) -> Tensor:
+        """3x3 intrinsic matrix (float32, on the CPU)."""
+        return torch.from_numpy(self.K_values())
+
+    @property
+    def K_inv(self) -> Tensor:
+        """Inverse intrinsics, each entry rounded once from a Python float."""
+        return torch.from_numpy(self.K_inv_values())
 
     def has_distortion(self) -> bool:
         return any(abs(v) > 0 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))

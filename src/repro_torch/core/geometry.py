@@ -166,13 +166,25 @@ def relative_pose_ref_from_cam(T_w_ref: SE3, T_w_cam: SE3) -> SE3:
     return T_w_ref.inverse().compose(T_w_cam)
 
 
-@functools.lru_cache(maxsize=16)
 def _intrinsics(cam: CameraModel, device: torch.device) -> tuple[Tensor, Tensor]:
     """`cam.K` and `cam.K_inv` on `device`, each entry filled in from the
     host matrix's float32 value: fills, not a copy from the host, so
-    nothing waits for the card. Shared read-only by every caller."""
+    nothing waits for the card. Shared read-only by every caller; under a
+    fake-tensor trace (a dry run, a lint) they are made fresh, so no fake
+    tensor lands in the cache."""
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return _intrinsics_fill(cam, device)
+    return _intrinsics_cached(cam, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _intrinsics_cached(cam: CameraModel, device: torch.device) -> tuple[Tensor, Tensor]:
+    return _intrinsics_fill(cam, device)
+
+
+def _intrinsics_fill(cam: CameraModel, device: torch.device) -> tuple[Tensor, Tensor]:
     out = []
-    for host in (cam.K, cam.K_inv):
+    for host in (cam.K_values(), cam.K_inv_values()):
         m = torch.empty((3, 3), dtype=torch.float32, device=device)
         for i, row in enumerate(host.tolist()):
             for j, v in enumerate(row):

@@ -30,6 +30,7 @@ from repro_torch.events.stream_hygiene import check_chunk_monotone
 from repro_torch.events.trajectory_stream import (
     POSE_EXTRAPOLATION_POLICIES,
     PoseExtrapolationError,
+    PoseInterpolator,
     PoseStallError,
     TrajectoryBuffer,
     enforce_pose_span,
@@ -140,6 +141,7 @@ class StreamingAggregator:
                 "max_stalled requires a TrajectoryBuffer pose source: a "
                 "fully-known Trajectory oracle never stalls frames, so "
                 "the bound would silently do nothing")
+        self._poser = None
         if self._gated:
             self.traj = traj
             self._traj_times_host = None
@@ -149,6 +151,11 @@ class StreamingAggregator:
                 poses=SE3(torch.as_tensor(traj.poses.R, device=self.device),
                           torch.as_tensor(traj.poses.t, device=self.device)))
             self._traj_times_host = to_host(traj.times, np.float32)
+            if self.device.type == "cpu":
+                # a stream poses one frame per push: the oracle's interval
+                # rotations once, each frame's arithmetic on host arrays
+                # (bitwise pose_at_times on the CPU)
+                self._poser = PoseInterpolator(self.traj)
         self.pose_extrapolation = pose_extrapolation
         self.max_stalled = max_stalled
         self.events_per_frame = int(events_per_frame)
@@ -158,6 +165,8 @@ class StreamingAggregator:
         self._last_t = float("-inf")
         self._stalled: deque[_StalledFrame] = deque()
         self._pose_final = False
+        # what a push that completes no frame returns (read-only, reused)
+        self._no_frames = empty_event_frames(self.events_per_frame, self.device)
 
     @property
     def pending_events(self) -> int:
@@ -237,7 +246,7 @@ class StreamingAggregator:
         e = self.events_per_frame
         n_rem = self._rem_xy.shape[0]
         if n_rem == 0:
-            return self._release() if self._gated else empty_event_frames(e, self.device)
+            return self._release() if self._gated else self._no_frames
         # t_mid from the REAL tail events only
         t_mid = np.asarray(np.median(self._rem_t), np.float32).reshape(1)
         pad = e - n_rem
@@ -255,7 +264,7 @@ class StreamingAggregator:
               n_frames: int, t_mid: np.ndarray | None = None) -> EventFrames:
         e = self.events_per_frame
         if n_frames == 0:
-            return self._release() if self._gated else empty_event_frames(e, self.device)
+            return self._release() if self._gated else self._no_frames
         if t_mid is None:
             t_mid = np.median(t.reshape(n_frames, e), axis=1)
         t_mid = np.asarray(t_mid, np.float32)
@@ -288,19 +297,22 @@ class StreamingAggregator:
                 traj: Trajectory) -> EventFrames:
         """EventFrames on the aggregator's device, posed from `traj`."""
         t_mid_d = torch.from_numpy(t_mid).to(self.device)
+        if traj is self.traj and self._poser is not None:
+            poses = self._poser(t_mid)
+        else:
+            poses = pose_at_times(traj, t_mid_d)
         return EventFrames(
             xy=torch.from_numpy(xy).to(self.device),
             valid=torch.from_numpy(valid).to(self.device),
             t_mid=t_mid_d,
-            poses=pose_at_times(traj, t_mid_d),
+            poses=poses,
         )
 
     def _release(self) -> EventFrames:
         """Pose and emit the oldest stalled frames the watermark covers
         (everything, once the pose stream is finalized)."""
-        e = self.events_per_frame
         if not self._stalled:
-            return empty_event_frames(e, self.device)
+            return self._no_frames
         buf: TrajectoryBuffer = self.traj
         if buf.num_samples < 2:
             if self._pose_final:
@@ -308,7 +320,7 @@ class StreamingAggregator:
                     f"pose stream finalized with {buf.num_samples} sample(s) "
                     f"received; {len(self._stalled)} stalled frame(s) can "
                     f"never be posed")
-            return empty_event_frames(e, self.device)
+            return self._no_frames
         if self._pose_final:
             take = len(self._stalled)
         else:
@@ -319,7 +331,7 @@ class StreamingAggregator:
             while take < len(self._stalled) and self._stalled[take].t_mid < wm:
                 take += 1
         if take == 0:
-            return empty_event_frames(e, self.device)
+            return self._no_frames
         frames = [self._stalled.popleft() for _ in range(take)]
         t_mid = np.asarray([f.t_mid for f in frames], np.float32)
         times = buf.times

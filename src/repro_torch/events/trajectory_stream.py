@@ -17,7 +17,7 @@ import warnings
 import numpy as np
 import torch
 
-from repro_torch.core.geometry import SE3, interpolate_pose
+from repro_torch.core.geometry import SE3, interpolate_pose, matmul3, so3_log
 from repro_torch.device import to_host
 from repro_torch.events.simulator import Trajectory
 
@@ -86,6 +86,78 @@ def pose_at_times(traj: Trajectory, t_query: Tensor, *, strict: bool = False) ->
     frac = torch.clamp((tq - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0, 1.0)
     return interpolate_pose(SE3(R[idx], t[idx]), SE3(R[idx + 1], t[idx + 1]),
                             frac[..., None])
+
+
+_F32 = np.float32
+
+
+def _fma_operand(a: np.ndarray) -> Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _matmul3_host(A: np.ndarray, B: np.ndarray) -> np.ndarray:
+    """`geometry.matmul3` on host arrays: the same three-term chain, its two
+    fused multiply-adds by `torch.addcmul` on the same shapes."""
+    p = A[..., :, 0, None] * B[..., None, 0, :]
+    r = torch.addcmul(torch.from_numpy(p), _fma_operand(A[..., :, 1, None]),
+                      _fma_operand(B[..., None, 1, :]))
+    return torch.addcmul(r, _fma_operand(A[..., :, 2, None]),
+                         _fma_operand(B[..., None, 2, :])).numpy()
+
+
+def _so3_exp_host(w: np.ndarray) -> np.ndarray:
+    """`geometry.so3_exp` on a host array, rounding as it does: the norm,
+    sin, cos and the fused multiply-adds through the same torch calls, every
+    other step a float32 operation that numpy rounds alike."""
+    theta_t = torch.linalg.vector_norm(torch.from_numpy(w), dim=-1)[..., None, None]
+    sin, cos = torch.sin(theta_t).numpy(), torch.cos(theta_t).numpy()
+    theta = theta_t.numpy()
+    small = theta < _F32(1e-8)
+    safe = np.where(small, _F32(1.0), theta)
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    z = np.zeros_like(wx)
+    K = np.stack([z, -wz, wy, wz, z, -wx, -wy, wx, z], -1).reshape(
+        *w.shape[:-1], 3, 3) / safe
+    eye = np.broadcast_to(np.eye(3, dtype=_F32), K.shape)
+    R = eye + sin * K + (_F32(1.0) - cos) * _matmul3_host(K, K)
+    return np.where(small, eye, R)
+
+
+class PoseInterpolator:
+    """`pose_at_times` over one fully known trajectory, on the host, for
+    many small queries: a stream poses each frame as its push completes it.
+
+    Bitwise what `pose_at_times` gives on the CPU, for any batch of
+    queries. Each interval's rotation log, `so3_log(R[k+1] R[k]^T)`, is
+    taken once for the whole trajectory instead of once per query; the
+    per-query arithmetic runs on host arrays, except the norm, sin, cos and
+    the fused multiply-adds, which go through the same torch calls as
+    `geometry`'s. Out-of-span queries clamp, as in `pose_at_times`.
+    """
+
+    def __init__(self, traj: Trajectory):
+        self._times = to_host(traj.times, np.float32)
+        n = int(self._times.shape[0])
+        if n < 2:
+            raise ValueError(
+                f"pose interpolation needs at least 2 trajectory samples, got "
+                f"{n}: one sample cannot bracket any query time")
+        R = torch.from_numpy(to_host(traj.poses.R, np.float32))
+        self._R = R.numpy()
+        self._t = to_host(traj.poses.t, np.float32)
+        self._w = so3_log(matmul3(R[1:], R[:-1].transpose(-1, -2))).numpy()
+
+    def __call__(self, t_query) -> SE3:
+        """Poses (CPU tensors) at the query times."""
+        tq = to_host(t_query, np.float32)
+        n = self._times.shape[0]
+        idx = np.clip(np.searchsorted(self._times, tq, side="right") - 1, 0, n - 2)
+        t0, t1 = self._times[idx], self._times[idx + 1]
+        frac = np.clip((tq - t0) / np.maximum(t1 - t0, _F32(1e-9)),
+                       _F32(0.0), _F32(1.0))[..., None]
+        t = self._t[idx] + frac * (self._t[idx + 1] - self._t[idx])
+        R = _matmul3_host(_so3_exp_host(self._w[idx] * frac), self._R[idx])
+        return SE3(torch.from_numpy(R), torch.from_numpy(t))
 
 
 class TrajectoryBuffer:

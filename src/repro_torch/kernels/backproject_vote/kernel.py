@@ -2,7 +2,8 @@
 
 Replaces the vote-and-store part of
 `repro.kernels.backproject_vote.kernel.backproject_vote_pallas`: one launch
-votes every plane of every segment of a bucket. Takes CUDA tensors only,
+votes every plane of every segment of a bucket. Takes CUDA tensors only
+(meta tensors trace it: its output's shape and dtype, nothing launched),
 and the events' validity as a bool mask.
 
 The host logic the kernel relies on lives here and runs anywhere:
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -138,7 +140,7 @@ def backproject_vote_cuda(
     check_mask("backproject_vote_cuda: valid", valid)
     for name, t in (("x0", x0), ("y0", y0), ("valid", valid), ("phi", phi)):
         want = torch.bool if name == "valid" else torch.float32
-        if not t.is_cuda or t.dtype != want:
+        if t.device.type not in ("cuda", "meta") or t.dtype != want:
             raise ValueError(f"backproject_vote_cuda: {name} must be a {want} "
                              f"CUDA tensor, got {t.dtype} on {t.device}")
     if x0.dim() != 3 or y0.shape != x0.shape or valid.shape != x0.shape:
@@ -149,6 +151,19 @@ def backproject_vote_cuda(
     if phi.dim() != 4 or phi.shape[:2] != (s, f) or phi.shape[3] != 3:
         raise ValueError(f"backproject_vote_cuda: phi must be (S, F, Nz, 3), "
                          f"got {tuple(phi.shape)}")
+    return torch.ops.repro_torch.backproject_vote(
+        x0, y0, valid, phi, float(cx), float(cy), int(w), int(h),
+        mode == "bilinear", bool(quantized), band_rows)
+
+
+# One PyTorch operation per launch: on a CUDA tensor it runs the body
+# below (the launch), a fake tensor only its output's shape and dtype, so a
+# dry run or a lint traces B1 as one operation without launching it.
+@torch.library.custom_op("repro_torch::backproject_vote", mutates_args=())
+def _backproject_vote_op(x0: Tensor, y0: Tensor, valid: Tensor, phi: Tensor,
+                         cx: float, cy: float, w: int, h: int, bilinear: bool,
+                         quantized: bool, band_rows: Optional[int]) -> Tensor:
+    s, f, e = x0.shape
     nz = phi.shape[2]
     store = torch.int16 if quantized else torch.float32
     dsi = torch.empty((s, nz, h, w), dtype=store, device=x0.device)
@@ -168,7 +183,13 @@ def backproject_vote_cuda(
         err = lib.backproject_vote_launch(
             x0.data_ptr(), y0.data_ptr(), valid.data_ptr(), phi.data_ptr(),
             dsi.data_ptr(), s, f, x0.shape[-1], nz, w, h, band_rows, cx, cy,
-            int(mode == "bilinear"), int(quantized), cuda.current_stream(x0.device))
+            int(bilinear), int(quantized), cuda.current_stream(x0.device))
         cuda.check(err, "backproject_vote_launch")
         cuda.launch_counts["backproject_vote"] += 1
     return dsi
+
+
+@_backproject_vote_op.register_fake
+def _(x0, y0, valid, phi, cx, cy, w, h, bilinear, quantized, band_rows):
+    return x0.new_empty((x0.shape[0], phi.shape[2], h, w),
+                        dtype=torch.int16 if quantized else torch.float32)

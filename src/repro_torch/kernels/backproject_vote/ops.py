@@ -3,7 +3,8 @@
 Counterpart of `repro.kernels.backproject_vote.ops`. The tensor's device
 picks the path: a CPU tensor takes the plain version (`ref.py`), a CUDA
 tensor launches the sweep kernel and then the depth max/argmax kernel over
-the stored DSI, any other device raises. Every wrapper accepts one frame
+the stored DSI, a meta tensor traces that path (the kernels' output
+shapes and dtypes; nothing runs), any other device raises. Every wrapper accepts one frame
 batch (F, E, ...) or a bucket of segments (S, F, E, ...); on CUDA a bucket
 is one launch of each kernel. Validity is a bool mask on every device (the
 reference's masks are exact 0/1; the kernel counts each valid vote as 1),
@@ -51,7 +52,7 @@ def backproject_vote_detect(
     """`(dsi, conf, zf)`: the stored DSI (..., Nz, h, w), int16 when
     `quantized` else float32, and the depth-axis max and parabola-refined
     argmax (..., h, w) of the STORED values."""
-    if xy0.device.type not in ("cpu", "cuda"):
+    if xy0.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"backproject_vote_detect: no path for device {xy0.device}")
     check_mask("backproject_vote_detect: valid", valid)
     if xy0.device.type == "cpu":

@@ -9,8 +9,8 @@ dtype and the head dim alone, before the launch:
   "fma"  the CUDA-core kernel (float32 FMAs): everything else it takes,
          float32 (tensor-core products would be TF32) and bf16 at other D.
 
-`flash_attention_cuda` takes CUDA tensors only; there is no other path
-here. Operands are read in place through their strides (`kernel_strides`).
+`flash_attention_cuda` takes CUDA tensors only (meta tensors trace it);
+there is no other path here. Operands are read in place through their strides (`kernel_strides`).
 """
 from __future__ import annotations
 
@@ -86,7 +86,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True
     The output is `torch.empty_like(q)`, so it keeps q's layout.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(f"flash_attention_cuda: {name} must be a CUDA tensor, "
                              f"got {t.device}")
         if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
@@ -105,14 +105,26 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True
     if d % 8 or not 8 <= d <= 256:
         raise ValueError(f"flash_attention_cuda: head dim {d} must be a multiple "
                          "of 8 in [8, 256]")
+    if sq and b and hq:
+        if skv == 0:
+            raise ValueError("flash_attention_cuda: no keys")
+        if b * hq > 2**31 - 1 or sq > 65535 * 64:
+            raise ValueError(f"flash_attention_cuda: {b}x{hq} heads of {sq} "
+                             "queries exceed the grid")
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal))
+
+
+# One PyTorch operation per launch: on CUDA tensors it runs the body below
+# (the launch), on fake tensors only its output's shape and dtype, so a dry
+# run traces B3 as one operation without launching it.
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> Tensor:
     out = torch.empty_like(q)
-    if sq == 0 or b == 0 or hq == 0:
+    if q.numel() == 0:
         return out
-    if skv == 0:
-        raise ValueError("flash_attention_cuda: no keys")
-    if b * hq > 2**31 - 1 or sq > 65535 * 64:
-        raise ValueError(f"flash_attention_cuda: {b}x{hq} heads of {sq} queries "
-                         "exceed the grid")
+    d = q.shape[3]
+    b, hq, sq = q.shape[:3]
+    hkv, skv = k.shape[1], k.shape[2]
     (q, qs), (k, ks), (v, vs) = _readable(q), _readable(k), _readable(v)
     out, os_ = _readable(out)
     r = route(q.dtype, d)
@@ -127,3 +139,8 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True
         cuda.launch_counts["flash_attention"] += 1
         cuda.launch_counts[f"flash_attention_{r}"] += 1
     return out
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)

@@ -26,7 +26,7 @@ def flash_attention(
     not change the result; the CUDA kernels tile with their own 64 x 64 and
     mask ragged edges. A CPU tensor takes the plain version, a CUDA
     tensor launches a kernel (read through its strides, output in q's
-    layout), any other device raises.
+    layout), a meta tensor traces it, any other device raises.
     """
     hq, sq = q.shape[1], q.shape[2]
     hkv, skv = k.shape[1], k.shape[2]
@@ -38,6 +38,6 @@ def flash_attention(
                          f"of blocks {bq}, {bk}")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no path for device {q.device}")
     return flash_attention_cuda(q, k, v, causal=causal)

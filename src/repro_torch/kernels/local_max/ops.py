@@ -13,11 +13,12 @@ def depth_argmax(dsi: Tensor) -> tuple[Tensor, Tensor]:
     """(conf, refined argmax) over the depth axis of a DSI (..., Nz, h, w).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one launch for any leading batch); any other device raises.
+    kernel (one launch for any leading batch), a meta tensor traces it;
+    any other device raises.
     """
     if dsi.device.type == "cpu":
         return depth_argmax_ref(dsi)
-    if dsi.device.type != "cuda":
+    if dsi.device.type not in ("cuda", "meta"):
         raise ValueError(f"depth_argmax: no path for device {dsi.device}")
     lead = dsi.shape[:-3]
     conf, zf = depth_argmax_cuda(dsi.reshape(-1, *dsi.shape[-3:]))

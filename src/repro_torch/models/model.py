@@ -7,9 +7,9 @@ axis; here `params["blocks"]` is a list with one dict per layer and the
 scan is a Python loop. Decode state is a list with one `KVCache` per
 layer, updated in place (see `repro_torch.models.kv_cache`).
 
-Not ported yet: MoE (ROADMAP A8, `models/moe.py`), Mamba-2 and hybrid
-stacks (A8, `models/mamba2.py`), the distribution knobs of `ModelCtx`
-and the training loss (A8, training slice).
+Not ported yet: MoE (ROADMAP A7, `models/moe.py`), Mamba-2 and hybrid
+stacks (A7, `models/mamba2.py`), the distribution knobs of `ModelCtx`
+and the training loss (A7, training slice).
 """
 from __future__ import annotations
 
@@ -68,17 +68,17 @@ class ModelCtx:
         if unported:
             raise NotImplementedError(
                 f"ModelCtx fields {unported} (expert/sequence sharding, remat, "
-                "meshes) are not ported yet: ROADMAP A8")
+                "meshes) are not ported yet: ROADMAP A7")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     if cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A8, models/moe.py)")
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A7, models/moe.py)")
     if cfg.pattern() != ("attn",):
         raise NotImplementedError(
             f"{cfg.name}: pattern {cfg.pattern()} needs Mamba-2 layers, not ported "
-            "yet (ROADMAP A8, models/mamba2.py)")
+            "yet (ROADMAP A7, models/mamba2.py)")
 
 
 # ---------------------------------------------------------------------------

@@ -68,6 +68,32 @@ class EMVSQuantPolicy:
         q = self.quantize_plane_coord_values
         return q(x_i), q(y_i)
 
+    # -- contract declarations for repro_torch.analysis ------------------
+
+    def declared_formats(self) -> dict[str, FixedPointFormat]:
+        """Per-tensor fixed-point formats by datapath name: the
+        machine-readable Table 1 the quantization-contract linter checks
+        against. The 'dsi' entry is also the int16 saturating store of
+        `core/dsi.py:to_storage`."""
+        return {
+            "coords": self.coords,
+            "canonical": self.canonical,
+            "plane_coords": self.plane_coords,
+            "homography": self.homography,
+            "phi": self.phi,
+            "dsi": self.dsi,
+        }
+
+    def sanctioned_clip_bounds(self) -> frozenset[tuple[float, float]]:
+        """Clamp ranges that sanction a narrowing cast: a float->int (or
+        int->narrower int) conversion is a deliberate saturating store, not
+        a truncation or a wrap, exactly when its operand was just clamped to
+        one of these (q_min, q_max) ranges, a format this policy declares."""
+        return frozenset(
+            (float(fmt.q_min), float(fmt.q_max))
+            for fmt in self.declared_formats().values()
+        )
+
 
 TABLE1 = EMVSQuantPolicy()
 

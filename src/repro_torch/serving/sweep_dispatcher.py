@@ -288,6 +288,9 @@ class SweepDispatcher:
         # device seconds per sweep from its CUDA events, on the card only
         # (not a stats key: those stay the reference's)
         self.device_time_s = _LatencyHist()
+        # host seconds spent inside _dispatch (staging, the sweep's enqueue,
+        # back-pressure waits): a stream's ingest is its push time less this
+        self.host_dispatch_s = 0.0
         self._session_wait_hists: dict[int, _LatencyHist] = {}
         self._enqueued_t: dict[tuple[int, tuple[int, int]], float] = {}
         self.stats = {"segments": 0, "dispatches": 0, "padded_segments": 0,
@@ -581,6 +584,13 @@ class SweepDispatcher:
         the segment axis to the smallest fitting S bucket, copy the batch
         to the card, enqueue the sweep and record its event. Only the
         back-pressure at the end may wait, on the oldest sweep's event."""
+        t_start = perf_counter()
+        try:
+            self._dispatch_group(group, cap)
+        finally:
+            self.host_dispatch_s += perf_counter() - t_start
+
+    def _dispatch_group(self, group, cap: int) -> None:
         # groups are only formed from non-empty closed-segment runs, so an
         # empty dispatch is a planner/grouping bug, not a stream condition
         # — and pad_segment_rows would reject it anyway.

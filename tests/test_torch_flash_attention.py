@@ -89,9 +89,22 @@ def test_flash_attention_refuses_what_the_reference_asserts():
 
 
 def test_flash_attention_other_devices_raise():
+    """A device with no path raises; a meta tensor traces the kernel's path
+    (the output's shape and dtype, nothing launched)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import cuda
+
+    for dev in ("xpu", "mps"):
+        with FakeTensorMode():
+            q = torch.zeros((1, 2, 16, 16), device=dev)
+            with pytest.raises(ValueError, match="no path for device"):
+                flash_attention(q, q, q)
+    before = dict(cuda.launch_counts)
     q = torch.zeros((1, 2, 16, 16), device="meta")
-    with pytest.raises(ValueError, match="no path for device"):
-        flash_attention(q, q, q)
+    out = flash_attention(q, q, q)
+    assert (out.device.type, out.dtype, tuple(out.shape)) == ("meta", q.dtype, (1, 2, 16, 16))
+    assert dict(cuda.launch_counts) == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

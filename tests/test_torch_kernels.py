@@ -191,12 +191,33 @@ def test_vs_reference_pallas_kernel_interpret(quantized):
 
 
 def test_wrappers_raise_on_other_devices():
+    """A device with no path raises. A meta tensor traces the card's path:
+    the kernels' output shapes and dtypes, nothing launched or counted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    for dev in ("xpu", "mps"):
+        with FakeTensorMode():
+            x = torch.zeros((1, 2, 4, 2), device=dev)
+            v = torch.zeros((1, 2, 4), dtype=torch.bool, device=dev)
+            with pytest.raises(ValueError, match="no path"):
+                t_ops.backproject_vote_detect(x, v, torch.zeros((1, 2, 8, 3), device=dev),
+                                              cx=CX, cy=CY, w=W, h=H)
+            with pytest.raises(ValueError, match="no path"):
+                depth_argmax(torch.zeros((8, 4, 4), device=dev))
+    before = dict(cuda.launch_counts)
     x = torch.zeros((1, 2, 4, 2), device="meta")
-    with pytest.raises(ValueError, match="no path"):
+    v = torch.zeros((1, 2, 4), dtype=torch.bool, device="meta")
+    dsi, conf, zf = t_ops.backproject_vote_detect(
+        x, v, torch.zeros((1, 2, 8, 3), device="meta"), cx=CX, cy=CY, w=W, h=H,
+        quantized=True)
+    assert (dsi.device.type, dsi.dtype, tuple(dsi.shape)) == ("meta", torch.int16, (1, 8, H, W))
+    assert tuple(conf.shape) == tuple(zf.shape) == (1, H, W)
+    conf, zf = depth_argmax(torch.zeros((8, 4, 4), device="meta"))
+    assert conf.device.type == "meta" and tuple(zf.shape) == (4, 4)
+    with pytest.raises(ValueError, match="bool mask"):
         t_ops.backproject_vote_detect(x, x[..., 0], torch.zeros((1, 2, 8, 3), device="meta"),
                                       cx=CX, cy=CY, w=W, h=H)
-    with pytest.raises(ValueError, match="no path"):
-        depth_argmax(torch.zeros((8, 4, 4), device="meta"))
+    assert dict(cuda.launch_counts) == before
 
 
 def test_launchers_raise_without_cuda_and_never_fall_back():

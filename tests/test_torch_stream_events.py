@@ -419,3 +419,79 @@ def test_hygiene_config_and_monotone_check_like_reference():
     empty = t_hyg.empty_event_stream()
     for x, y in zip(empty, j_hyg.empty_event_stream()):
         assert x.dtype == y.dtype and x.shape == y.shape
+
+
+@pytest.mark.parametrize("name,steps", [("simulation_3planes", 24), ("simulation_3walls", 57),
+                                        ("slider_far", 96)])
+def test_pose_interpolator_is_bitwise_pose_at_times(name, steps):
+    """The oracle's host interpolator (one interval log per trajectory
+    interval, each query's arithmetic on host arrays) gives the bits of
+    `pose_at_times`, one query at a time and in any batch, out-of-span
+    queries clamped and sample times hit exactly."""
+    traj = t_sim.make_trajectory(name, steps, device="cpu")
+    interp = t_ts.PoseInterpolator(traj)
+    rng = np.random.default_rng(steps)
+    times = traj.times.numpy()
+    tq = np.sort(np.concatenate([rng.uniform(-0.05, 1.05, 150).astype(np.float32),
+                                 times[::7]])).astype(np.float32)
+    full = t_ts.pose_at_times(traj, torch.from_numpy(tq))
+    got = interp(tq)
+    assert torch.equal(got.R, full.R) and torch.equal(got.t, full.t)
+    for i in range(tq.size):
+        one = interp(tq[i:i + 1])
+        assert torch.equal(one.R, full.R[i:i + 1]) and torch.equal(one.t, full.t[i:i + 1])
+
+
+class _OpCount(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the aten operations dispatched (metadata reads excluded) and
+    the copies among them (`_to_copy`, `copy_`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+        self.copies = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace != "prim":
+            self.ops += 1
+            self.copies += func.overloadpacket.__name__ in ("_to_copy", "copy_", "copy")
+        return func(*args, **(kwargs or {}))
+
+
+# aten operations one StreamSession.push of one 1024-event frame may
+# dispatch (sweeps excluded): 50 with the oracle's host interpolator; the
+# per-frame pose_at_times it replaced dispatched 158
+INGEST_OPS_PER_PUSH = 50
+
+
+def test_ingest_per_push_is_pinned():
+    """Host ingest per push (fault C3): with the sweeps stubbed out, each
+    push of one frame dispatches at most INGEST_OPS_PER_PUSH aten
+    operations on the session's CPU tensors and copies nothing."""
+    from repro_torch.core.camera import CameraModel
+    from repro_torch.core.dsi import DSIConfig
+    from repro_torch.core.pipeline import EMVSOptions
+    from repro_torch.serving.emvs_stream import EMVSStreamEngine, StreamConfig, iter_event_chunks
+
+    cam = CameraModel()
+    traj = t_sim.make_trajectory("simulation_3planes", 48, device="cpu")
+    scene = t_sim.make_scene(t_sim.SceneConfig(name="simulation_3planes", points_per_plane=150))
+    ev = t_sim.simulate_events(cam, scene, traj, noise_fraction=0.02, seed=0, device="cpu")
+    dsi_cfg = DSIConfig.for_camera(cam, num_planes=16, z_min=0.6, z_max=4.5)
+    opts = EMVSOptions(formulation="kernel", voting="nearest", quantized=True,
+                       keyframe_dist_frac=0.05)
+    engine = EMVSStreamEngine(cam, dsi_cfg, traj, opts, StreamConfig(events_per_frame=1024),
+                              device="cpu")
+    dispatched = []
+    engine._dispatcher._dispatch = lambda group, cap: dispatched.append(len(group))
+    counts = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for chunk in iter_event_chunks(ev, 1024):
+            mode = _OpCount()
+            with mode:
+                engine.push(chunk)
+            counts.append((mode.ops, mode.copies))
+    assert len(counts) >= 20 and dispatched  # segments closed along the way
+    assert max(ops for ops, _ in counts) <= INGEST_OPS_PER_PUSH
+    assert all(copies == 0 for _, copies in counts)
