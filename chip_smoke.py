@@ -142,11 +142,40 @@ Phases, each asserting, none caught:
      the bound share; cross-checks one device time against the
      profiler's kernel time; prefill per bucket; a warm decode step of
      the 4 slots against the weight-streaming bound; tokens/s of the
-     serving run; and profiles one prefill of the largest bucket (at most
-     PREFILL_MAX_LAUNCHES launches) and one decode step.
+     serving run; and profiles one prefill of the largest bucket (the
+     most launches of PREFILL_LAUNCH_TRACES traces at most
+     PREFILL_MAX_LAUNCHES) and one decode step;
+  10. frees phase 7's weights and serves the MoE, SSM and hybrid families
+     through the same Engine (4 slots, max_len 1024, 8 requests of
+     `lm_prompts`, 16 new tokens each; launch counts zeroed just before each
+     run and read just after; every request done and every sampled logit
+     row finite): (a) deepseek-moe-16b at full width (28 layers, 64 routed
+     experts top-6 + 2 shared, random bf16 weights drawn on the card),
+     flash_attention launched 28 times per request, all on the tensor-core
+     route; the largest prompt's prefill logits with the kernel within
+     PREFILL_REL_L2 (bf16) of the plain attention, and the q, k, v of each
+     of its 28 attention layers through the kernel (one tensor-core launch
+     each) against the plain version within FLASH_TOL; the same on
+     MOE_F32_LAYERS layers in float32; layer 0's MoE on MOE_CHECK_TOKENS
+     bf16 tokens on the card against the CPU (top-k sets equal except at
+     router near-ties below ROUTER_NEAR_TIE, outputs within MOE_BF16_ULPS
+     bf16 ulps and MOE_BF16_REL_L2); (b) mamba2-2.7b at full width, each
+     prompt prefilled at its exact length, no flash_attention launch; a
+     one-slot engine's greedy tokens equal a direct prefill +
+     decode_step's; prefill + decode equals forward within 1e-3 x
+     max|logits| on SSM_CHECK_LAYERS full-width layers in float32; (c)
+     jamba-1.5-large-398b at its reduced width, flash_attention once per
+     super-block per request; the largest prompt's prefill and its
+     attention layer's q, k, v, kernel vs plain, as in (a). For each:
+     tokens/s, prefill ms per bucket or prompt length, one warm
+     decode_step_batched under torch.cuda.set_sync_debug_mode("error") (no
+     host sync), its ms against the weight-streaming bound, its launches
+     and busy share under the profiler, peak memory and the phase's
+     seconds.
 
 At the end it prints, each on a line of its own: one JSON object for the
-kernels (all three), the card's name and power limit, and last
+kernels (all three; flash_attention's launches count phases 7 and 10's
+serve runs), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing none of these,
 when there is no CUDA device or the repository's `src/` is not beside it.
 """
@@ -184,11 +213,32 @@ LM_ARCH = "qwen3-8b"
 LM_SLOTS, LM_MAX_LEN, LM_BUCKETS = 4, 1024, (32, 128, 512)
 LM_REQUESTS, LM_NEW_TOKENS = 8, 16
 FLASH_TIMED_S = (32, 128, 512, 2048)
+# phase 10: MoE, SSM and hybrid serving
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH = "deepseek-moe-16b", "mamba2-2.7b", "jamba-1.5-large-398b"
+# a full-width MoE layer on the card against the CPU in bf16: each output
+# within MOE_BF16_ULPS bf16 ulps of its own magnitude plus as many of the
+# output's rms (both sides round the expert matmuls' outputs to bf16, then
+# the sum), and the relative L2 within MOE_BF16_REL_L2 (6.03e-4 measured);
+# the CPU tests hold the reduced layer to the same ulp rule
+# (tests/test_torch_moe.py). A token may take another top-k set only where
+# its k-th and (k+1)-th router probabilities lie within ROUTER_NEAR_TIE
+MOE_BF16_ULPS, MOE_BF16_REL_L2 = 2, 2e-3
+ROUTER_NEAR_TIE = 1e-5
+MOE_CHECK_TOKENS = 512
+# mamba2-2.7b prefill lengths timed; its float32 prefill + decode vs
+# forward check: layers kept, prompt tokens (two chunks of 256), decode steps
+SSM_TIMED_LENS = (32, 128, 512)
+# deepseek-moe-16b layers kept for its float32 prefill, kernel vs plain
+MOE_F32_LAYERS = 2
+SSM_CHECK_LAYERS, SSM_CHECK_PROMPT, SSM_CHECK_STEPS = 2, 300, 16
 GRAPH_CALLS = 20  # calls captured in one CUDA graph for a device time
 PROFILER_TRACES = 3  # traces of a profiler cross-check that may return no records
-# launches in one profiled prefill of bucket 512: 3,001 with the q/k/v and
-# output copies around the attention kernel, 144 fewer without them
-PREFILL_MAX_LAUNCHES = 2857
+# launches in one profiled prefill of bucket 512 on an H100, in every trace
+# that lost no record: 2,858; copies of q/k/v and of the output around the
+# attention kernel would add 144
+PREFILL_MAX_LAUNCHES = 2858
+PREFILL_LAUNCH_TRACES = 3  # profiled prefills whose most launches the gate reads
+TRACER_WARM_KERNELS = 32  # kernels run in the profiler's dropped warm-up step
 CUOBJDUMP_DEFAULT = "/usr/local/cuda/bin/cuobjdump"
 # the SASS of the 1-D bulk copy (cp.async.bulk) that feeds the sweep kernel's ring
 B1_BULK_COPY_SASS = "UBLKCP"
@@ -330,25 +380,38 @@ def sass_count(lib, mnemonic: str) -> int:
     return sum(mnemonic in line for line in sass.splitlines())
 
 
-def log_breakdown(card: str, what: str, fn, top: int = 8) -> int:
-    """Profile one call of `fn` and print its wall ms, the summed ms and
-    number of its device kernels, the busy share and the `top` device
-    kernels by time; returns the number of launches. Only the kernel
-    events count: the CPU-side operator rows carry their kernels' time
-    again."""
+def profile_once(fn) -> tuple[float, list]:
+    """One call of `fn` under torch.profiler: its wall ms and its device
+    kernels as (name, device ms, launches), the longest first. A trace
+    that starts with `fn` often loses the records of its first kernels
+    (the embedding gather and 3 cache fills of a qwen3-8b prefill on an
+    H100), so a step of TRACER_WARM_KERNELS small kernels, whose records
+    are dropped, runs first; a trace may still lose records now and then.
+    Only the kernel events count: the CPU-side operator rows carry their
+    kernels' time again."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    traced = []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(TRACER_WARM_KERNELS):
+            warm.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
+        prof.step()
     rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in traced[0]:
+        # the step's own span is a device-side row too
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("ProfilerStep"):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -356,13 +419,44 @@ def log_breakdown(card: str, what: str, fn, top: int = 8) -> int:
         if dev_us > 0:
             rows.append((ev.key, dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
+    return wall, rows
+
+
+def log_breakdown(card: str, what: str, fn, top: int = 8) -> dict[str, int]:
+    """Profile one call of `fn` and print its wall ms, the summed ms and
+    number of its device kernels, the busy share and the `top` device
+    kernels by time; returns the launches of each kernel."""
+    wall, rows = profile_once(fn)
     busy = sum(r[1] for r in rows)
     log(f"[{card}] {what} under torch.profiler: wall {wall:.2f} ms, device kernels "
         f"{busy:.2f} ms in {sum(r[2] for r in rows)} launches (busy share "
         f"{busy / wall:.3f}); top device ops:")
     for name, ms, calls in rows[:top]:
         log(f"  {ms:9.3f} ms  {calls:5d} calls  {name[:90]}")
-    return sum(r[2] for r in rows)
+    return {name: calls for name, _, calls in rows}
+
+
+def check_launches(card: str, what: str, fn, traces: int, limit: int) -> int:
+    """Asserts that the most launches that `traces` profiled calls of `fn`
+    record (the first printed by log_breakdown) are at most `limit`, and
+    returns them: a trace may lose records but adds none. Prints each
+    trace's count, the kernels whose counts differ and, over the limit,
+    every kernel of the fullest trace."""
+    counts = [log_breakdown(card, what, fn, top=10)]
+    counts += [{name: calls for name, _, calls in profile_once(fn)[1]}
+               for _ in range(traces - 1)]
+    totals = [sum(c.values()) for c in counts]
+    differ = {name: [c.get(name, 0) for c in counts]
+              for name in sorted(set().union(*counts))
+              if len({c.get(name, 0) for c in counts}) > 1}
+    log(f"[{card}] {what}: launches per trace {totals}"
+        + (f"; kernels whose counts differ: {differ}" if differ else ""))
+    n = max(totals)
+    if n > limit:
+        log(f"[{card}] {what}: launches of each kernel in the fullest trace: "
+            f"{counts[totals.index(n)]}")
+    assert n <= limit, f"{what} launched {n} kernels, more than {limit}"
+    return n
 
 
 def assert_equal(a, b, what: str) -> None:
@@ -634,24 +728,15 @@ def tensors(tree) -> list:
     return [tree]
 
 
-def serve_phase(dev, card: str) -> dict:
-    """Phase 7: qwen3-8b served at full width through the Engine."""
-    from unittest import mock
-
+def checked_engine_class():
+    """The port's Engine, asserting every logit row it samples is finite
+    and timing admission (prefill + splice) apart from decode."""
     import numpy as np
     import torch
 
-    import repro_torch.models.attention as attention
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import cuda
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.models import model as M
-    from repro_torch.serving.engine import Engine, EngineConfig, Request
+    from repro_torch.serving.engine import Engine
 
     class CheckedEngine(Engine):
-        """The port's Engine, asserting every logit row it samples is finite
-        and timing admission (prefill + splice) apart from decode."""
-
         admit_s = 0.0
 
         def _admit(self):
@@ -665,6 +750,24 @@ def serve_phase(dev, card: str) -> dict:
             assert np.isfinite(logits).all(), "non-finite logits"
             return super()._sample_host(logits)
 
+    return CheckedEngine
+
+
+def serve_phase(dev, card: str) -> dict:
+    """Phase 7: qwen3-8b served at full width through the Engine."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import EngineConfig, Request
+
+    CheckedEngine = checked_engine_class()
     cfg = get_config(LM_ARCH)
     t0 = time.perf_counter()
     params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
@@ -829,9 +932,9 @@ def lm_timings(dev, card: str, lm: dict) -> list[dict]:
         toks = torch.randint(1, cfg.vocab_size, (1, b), generator=g, device=dev)
         ms = cuda_ms(lambda: M.prefill(params, toks, cfg, LM_MAX_LEN), reps=3, inner=2)
         log(f"[{card}] prefill {LM_ARCH} bucket {b}: {ms:.2f} ms")
-    n = log_breakdown(card, f"prefill bucket {LM_BUCKETS[-1]}",
-                      lambda: M.prefill(params, toks, cfg, LM_MAX_LEN), top=10)
-    assert n <= PREFILL_MAX_LAUNCHES, f"prefill launched {n} kernels"
+    check_launches(card, f"prefill bucket {LM_BUCKETS[-1]}",
+                   lambda: M.prefill(params, toks, cfg, LM_MAX_LEN),
+                   PREFILL_LAUNCH_TRACES, PREFILL_MAX_LAUNCHES)
 
     state = M.init_decode_state(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
     tokens = torch.randint(1, cfg.vocab_size, (LM_SLOTS, 1), generator=g, device=dev)
@@ -846,6 +949,353 @@ def lm_timings(dev, card: str, lm: dict) -> list[dict]:
         f"{bound:.2f} ms ({lm['weight_bytes'] / 1e9:.2f} GB of weights at 3.35 TB/s)")
     log_breakdown(card, "decode step", step, top=10)
     return rows
+
+
+def served_run(dev, card: str, cfg, params, ecfg, prompts, what: str):
+    """Serve one request per prompt (LM_NEW_TOKENS each) through a checked
+    Engine after a short warm-up, with the launch counts zeroed just before
+    the run and read just after. Returns (engine, requests, launches, wall s)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import cuda
+    from repro_torch.serving.engine import Request
+
+    CheckedEngine = checked_engine_class()
+    warm = CheckedEngine(cfg, params, ecfg, eos_id=-1)  # cuBLAS handles, allocator
+    for n in LM_BUCKETS:
+        warm.submit(Request(rid=-1, prompt=np.ones(n, np.int32), max_new_tokens=2))
+    warm.run_until_done()
+    del warm
+    eng = CheckedEngine(cfg, params, ecfg, eos_id=-1)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda.launch_counts.clear()
+    t0 = time.perf_counter()
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.launch_counts)
+    for r in reqs:
+        assert r.done and len(r.generated) == LM_NEW_TOKENS, (what, r.rid, r.generated)
+    n_tokens = sum(len(r.generated) for r in reqs)
+    log(f"[{card}] serve {what}: {len(reqs)} requests (prompts "
+        f"{sorted(len(p) for p in prompts)}, prefill lengths "
+        f"{sorted(eng.bucket_for(len(p)) for p in prompts)}) -> {n_tokens} tokens in "
+        f"{eng.step_count} engine steps, {1e3 * wall:.1f} ms, {n_tokens / wall:.1f} "
+        f"tokens/s (admission {1e3 * eng.admit_s:.1f} ms for {len(reqs)} prefills, "
+        f"decode {1e3 * (wall - eng.admit_s):.1f} ms), launches {launches}, peak "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    return eng, reqs, launches, wall
+
+
+def decode_checks(dev, card: str, what: str, cfg, params, weight_bytes: int) -> None:
+    """A warm decode_step_batched of LM_SLOTS slots: one call under
+    torch.cuda.set_sync_debug_mode("error") (a host sync raises), its
+    host-inclusive ms against the weight-streaming bound, and its launches
+    and busy share under the profiler."""
+    import torch
+
+    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.models import model as M
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    state = M.init_decode_state(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+    tokens = torch.randint(1, cfg.vocab_size, (LM_SLOTS, 1), generator=g, device=dev)
+    lengths = torch.tensor([37, 120, 480, 300][:LM_SLOTS], device=dev)
+
+    def step():
+        return M.decode_step_batched(params, state, tokens, lengths, cfg)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    logits, _ = step()
+    torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all()), f"{what}: non-finite decode logits"
+    log(f"{what}: a warm decode_step_batched made no host sync "
+        "(set_sync_debug_mode('error'))")
+    ms = cuda_ms(step, reps=5, inner=3)
+    bound = 1e3 * weight_bytes / HBM_BW
+    log(f"[{card}] decode step {what} {LM_SLOTS} slots: {ms:.2f} ms warm "
+        f"(host-inclusive), weight-streaming bound {bound:.3f} ms "
+        f"({weight_bytes / 1e9:.3f} GB of weights at 3.35 TB/s)")
+    n = sum(log_breakdown(card, f"{what} decode step", step, top=8).values())
+    log(f"[{card}] {what}: {n} launches per decode step")
+
+
+def bf16_ulp(t):
+    """The spacing of bfloat16 numbers at |t| (8 significant bits)."""
+    import torch
+
+    e = torch.frexp(t.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)).exponent
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+
+
+def moe_layer_check(dev, card: str, cfg, layer: dict) -> None:
+    """One full-width MoE layer on MOE_CHECK_TOKENS bf16 tokens, on the card
+    and on the CPU with the same weights: the top-k expert sets are equal
+    except where a token's k-th and (k+1)-th router probabilities lie
+    within ROUTER_NEAR_TIE (float32 sums in another order may then pick the
+    other expert); the outputs of the tokens routed alike agree within
+    MOE_BF16_ULPS bf16 ulps of their magnitude and of the output's rms."""
+    import torch
+
+    from repro_torch.models.moe import moe_apply, router_probs
+
+    def to_cpu(tree):
+        return ({k: to_cpu(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.cpu())
+
+    x = torch.randn((MOE_CHECK_TOKENS, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2)).to(torch.bfloat16)
+    cpu_layer = to_cpu(layer)
+    t0 = time.perf_counter()
+    y_cpu, m_cpu = moe_apply(cpu_layer, x, cfg)
+    cpu_s = time.perf_counter() - t0
+    y_dev, m_dev = moe_apply(layer, x.to(dev), cfg)
+    _, i_cpu, _ = router_probs(cpu_layer, x, cfg.moe)
+    _, i_dev, _ = router_probs(layer, x.to(dev), cfg.moe)
+    k = cfg.moe.top_k
+    probs = torch.softmax(x.float() @ cpu_layer["router"]["w"].float(), dim=-1)
+    top = torch.topk(probs, k + 1, dim=-1).values
+    gap = top[:, k - 1] - top[:, k]
+    differ = (torch.sort(i_cpu, -1).values != torch.sort(i_dev.cpu(), -1).values).any(-1)
+    n_differ = int(differ.sum())
+    log(f"MoE layer 0 ({MOE_CHECK_TOKENS} tokens, bf16): {n_differ} tokens with another "
+        f"top-{k} set on the card than on the CPU"
+        + (f", smallest top-k gap among them {float(gap[differ].min()):.3g}"
+           if n_differ else "")
+        + f"; smallest top-k gap over all tokens {float(gap.min()):.3g}; accepted only "
+        f"below {ROUTER_NEAR_TIE:g}")
+    assert bool((gap[differ] < ROUTER_NEAR_TIE).all()), "a routing difference off a near-tie"
+    same = ~differ
+    got, want = y_dev.cpu().float()[same], y_cpu.float()[same]
+    diff = (got - want).abs()
+    rms = torch.linalg.vector_norm(want) / want.numel() ** 0.5
+    limit = MOE_BF16_ULPS * (bf16_ulp(want) + bf16_ulp(rms))
+    worst = int((diff / limit).argmax())
+    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    log(f"[{card}] MoE layer 0 card vs CPU: max abs {float(diff.max()):.3g}; worst "
+        f"element off by {float(diff.flatten()[worst]):.3g} at |y| "
+        f"{float(want.flatten()[worst].abs()):.3g}, {float((diff / limit).max()):.3g} of "
+        f"its limit ({MOE_BF16_ULPS} bf16 ulps of |y| plus {MOE_BF16_ULPS} of the rms "
+        f"{float(rms):.3g}); relative L2 {rel:.3g} (limit {MOE_BF16_REL_L2:g}); dropped "
+        f"fraction {float(m_dev['moe_drop_frac']):.4f} card, "
+        f"{float(m_cpu['moe_drop_frac']):.4f} CPU; the CPU took {cpu_s:.2f} s")
+    assert bool((diff <= limit).all()) and rel <= MOE_BF16_REL_L2, (float(diff.max()), rel)
+    if not n_differ:
+        assert float(m_dev["moe_drop_frac"]) == float(m_cpu["moe_drop_frac"])
+
+
+def prefill_attention_check(dev, what: str, cfg, params, p, n: int) -> float:
+    """Prompt p's prefill at length n (the engine's for it) with the kernel
+    and with the plain attention: the logits within PREFILL_REL_L2 of each
+    other. q, k and v of every attention layer in the plain run are
+    captured and each goes through the kernel and the plain version: one
+    launch on the route `kernel.route` names, max abs error within
+    FLASH_TOL. Returns that error."""
+    from unittest import mock
+
+    import torch
+
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.flash_attention.kernel import route
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import model as M
+
+    toks = torch.zeros((1, n), dtype=torch.long, device=dev)
+    toks[0, :len(p)] = torch.as_tensor(p, device=dev)
+    calls = []
+
+    def plain(q, k, v, *, causal, block_q, block_k):
+        calls.append((q, k, v, dict(causal=causal, block_q=block_q, block_k=block_k)))
+        return attention_ref(q, k, v, causal=causal)
+
+    lk, _ = M.prefill(params, toks, cfg, LM_MAX_LEN, logit_index=len(p) - 1)
+    with mock.patch.object(attention, "flash_attention", plain):
+        lp, _ = M.prefill(params, toks, cfg, LM_MAX_LEN, logit_index=len(p) - 1)
+    dtype = str(params["embed"]["table"].dtype)
+    assert bool(torch.isfinite(lk).all()) and lk.shape == (1, 1, cfg.vocab_size)
+    rel = float(torch.linalg.vector_norm(lk.float() - lp.float())
+                / torch.linalg.vector_norm(lp.float()))
+    log(f"{what} prefill logits, {dtype[6:]} ({len(p)} tokens, length {n}): kernel vs "
+        f"plain attention relative L2 {rel:.3g}, max abs "
+        f"{float((lk - lp).abs().max()):.3g}, limit {PREFILL_REL_L2[dtype]:g}")
+    assert rel <= PREFILL_REL_L2[dtype], f"{what}: prefill logits relative L2 {rel}"
+    assert len(calls) == cfg.n_superblocks() * cfg.pattern().count("attn"), len(calls)
+
+    worst = 0.0
+    for q, k, v, kw in calls:
+        r = route(q.dtype, q.shape[-1])
+        before = dict(cuda.launch_counts)
+        got = flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, causal=kw["causal"])
+        torch.cuda.synchronize()
+        for key in ("flash_attention", f"flash_attention_{r}"):
+            assert cuda.launch_counts[key] == before.get(key, 0) + 1, (what, key)
+        assert got.dtype == q.dtype and bool(torch.isfinite(got).all()), what
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+    tol = FLASH_TOL[str(q.dtype)]
+    log(f"{what}: q, k, v of the {len(calls)} attention layers of that prefill, "
+        f"{tuple(q.shape)} over {tuple(k.shape)} {str(q.dtype)[6:]} causal: kernel "
+        f"(route {r}, one launch each) vs plain max abs {worst:.3g}, tol {tol:g}")
+    assert worst <= tol, f"{what}: flash_attention max abs err {worst} > {tol}"
+    return worst
+
+
+def family_serve(dev, card: str, label: str, cfg, checks) -> dict:
+    """One phase-10 family: random bf16 weights drawn on the card, the 8
+    requests served (prefill at the bucket, or at the prompt's exact
+    length where the arch has an SSM), flash_attention launched once per
+    attention layer per request and all on the tensor-core route; then
+    `checks(cfg, params, prompts, bucket_for)`, which returns a dict for
+    the phase's result, and the warm decode step's checks."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import EngineConfig
+
+    t_phase = time.perf_counter()
+    params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    log(f"[{card}] {cfg.name}: {M.param_count(params) / 1e9:.3f} B parameters, "
+        f"{weight_bytes / 1e9:.2f} GB, drawn on the card in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    ecfg = EngineConfig(slots=LM_SLOTS, max_len=LM_MAX_LEN, prefill_buckets=LM_BUCKETS)
+    prompts = lm_prompts(cfg.vocab_size)
+    eng, reqs, launches, wall = served_run(dev, card, cfg, params, ecfg, prompts, cfg.name)
+    lengths = {eng.bucket_for(len(p)) for p in prompts}
+    assert lengths == ({len(p) for p in prompts} if cfg.ssm is not None
+                       else set(LM_BUCKETS)), lengths
+    want = cfg.n_superblocks() * cfg.pattern().count("attn") * len(reqs)
+    assert launches.get("flash_attention", 0) == want, (launches, want)
+    assert launches.get("flash_attention_tc", 0) == want, (launches, want)
+    log(f"{cfg.name}: flash_attention launched {want} times "
+        f"({want // len(reqs)} per request), all on the tensor-core route" if want
+        else f"{cfg.name}: no flash_attention launch (attention-free)")
+    out = checks(cfg, params, prompts, eng.bucket_for) or {}
+    decode_checks(dev, card, cfg.name, cfg, params, weight_bytes)
+    log(f"[{card}] phase {label} ({cfg.name}): peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches,
+            "tokens_per_s": sum(len(r.generated) for r in reqs) / wall, **out}
+
+
+def timed_prefills(dev, card: str, cfg, params, lengths, unit: str) -> None:
+    import torch
+
+    from repro_torch.models import model as M
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    for s in lengths:
+        t = torch.randint(1, cfg.vocab_size, (1, s), generator=g, device=dev)
+        ms = cuda_ms(lambda: M.prefill(params, t, cfg, LM_MAX_LEN), reps=3, inner=2)
+        log(f"[{card}] prefill {cfg.name} {unit} {s}: {ms:.2f} ms")
+
+
+def moe_checks(dev, card: str):
+    """Phase 10a's checks: the largest prompt's prefill and its attention
+    layers, kernel vs plain, in bf16 and on MOE_F32_LAYERS layers in
+    float32; layer 0's MoE on the card against the CPU; prefill per bucket."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    def checks(cfg, params, prompts, bucket_for):
+        p = max(prompts, key=len)
+        err = prefill_attention_check(dev, cfg.name, cfg, params, p, bucket_for(len(p)))
+        cfg2 = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS)
+        p32 = M.init_params(cfg2, generator=torch.Generator(device=dev).manual_seed(4),
+                            dtype=torch.float32, device=dev)
+        prefill_attention_check(dev, f"{cfg.name} float32, {MOE_F32_LAYERS} layers",
+                                cfg2, p32, p, bucket_for(len(p)))
+        del p32
+        torch.cuda.empty_cache()
+        moe_layer_check(dev, card, cfg, params["blocks"][0]["ffn"]["moe"])
+        timed_prefills(dev, card, cfg, params, LM_BUCKETS, "bucket")
+        return {"flash_max_abs_err": err}
+
+    return checks
+
+
+def ssm_checks(dev, card: str):
+    """Phase 10b's checks: no flash_attention launch; a one-slot engine's
+    greedy tokens equal a direct prefill + decode_step's; prefill + decode
+    against forward on SSM_CHECK_LAYERS float32 layers; prefill per length."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import EngineConfig, Request
+
+    def checks(cfg, params, prompts, bucket_for):
+        # one slot: the engine's decode runs the shapes of a direct
+        # decode_step, so its greedy tokens must equal a direct prefill +
+        # decode_step's (with 4 slots cuBLAS may sum the bf16 products in
+        # another order)
+        CheckedEngine = checked_engine_class()
+        for p in (min(prompts, key=len), max(prompts, key=len)):
+            one = CheckedEngine(cfg, params, EngineConfig(
+                slots=1, max_len=LM_MAX_LEN, prefill_buckets=LM_BUCKETS), eos_id=-1)
+            req = Request(rid=0, prompt=p, max_new_tokens=LM_NEW_TOKENS)
+            one.submit(req)
+            one.run_until_done()
+            toks = torch.as_tensor(p, device=dev)[None].long()
+            logits, st = M.prefill(params, toks, cfg, LM_MAX_LEN)
+            direct = [int(logits[0, -1].argmax())]
+            for cur in range(len(p), len(p) + LM_NEW_TOKENS - 1):
+                logits, st = M.decode_step(params, st,
+                                           torch.tensor([[direct[-1]]], device=dev), cur, cfg)
+                direct.append(int(logits[0, -1].argmax()))
+            assert req.generated == direct, (len(p), req.generated, direct)
+            log(f"{cfg.name}: a {len(p)}-token prompt served alone: the engine's "
+                f"{LM_NEW_TOKENS} greedy tokens equal a direct prefill + decode_step's")
+
+        # prefill then decode against one forward, float32, 2 full-width layers
+        cfg2 = dataclasses.replace(cfg, n_layers=SSM_CHECK_LAYERS)
+        p32 = M.init_params(cfg2, generator=torch.Generator(device=dev).manual_seed(4),
+                            dtype=torch.float32, device=dev)
+        n = SSM_CHECK_PROMPT + SSM_CHECK_STEPS
+        toks = torch.randint(1, cfg.vocab_size, (1, n),
+                             generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+        full, _ = M.forward(p32, toks, cfg2)
+        lp, st = M.prefill(p32, toks[:, :SSM_CHECK_PROMPT], cfg2, LM_MAX_LEN)
+        errs = [float((lp[:, 0] - full[:, SSM_CHECK_PROMPT - 1]).abs().max())]
+        for i in range(SSM_CHECK_PROMPT, n):
+            ld, st = M.decode_step(p32, st, toks[:, i:i + 1], i, cfg2)
+            errs.append(float((ld[:, 0] - full[:, i]).abs().max()))
+        scale = float(full.abs().max())
+        log(f"{cfg.name} float32, {SSM_CHECK_LAYERS} full-width layers: prefill of "
+            f"{SSM_CHECK_PROMPT} tokens + {SSM_CHECK_STEPS} decode steps vs forward of "
+            f"{n}: max abs {max(errs):.3g}, limit 1e-3 x max|logits| = "
+            f"{1e-3 * max(scale, 1.0):.3g}")
+        assert max(errs) < 1e-3 * max(scale, 1.0), (errs, scale)
+        del p32, full, lp, st
+        timed_prefills(dev, card, cfg, params, SSM_TIMED_LENS, "tokens")
+        return {}
+
+    return checks
+
+
+def hybrid_checks(dev):
+    """Phase 10c's checks: the largest prompt's exact-length prefill and
+    its attention layer, kernel vs plain, in bf16."""
+
+    def checks(cfg, params, prompts, bucket_for):
+        p = max(prompts, key=len)
+        return {"flash_max_abs_err": prefill_attention_check(
+            dev, cfg.name, cfg, params, p, bucket_for(len(p)))}
+
+    return checks
 
 
 def emvs_config():
@@ -1662,6 +2112,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     t_start = time.perf_counter()
 
+    from repro_torch.configs import get_config
     from repro_torch.core.dsi import to_storage
     from repro_torch.core.pipeline import run_emvs
     from repro_torch.events.simulator import absrel, ground_truth_depth
@@ -1833,6 +2284,22 @@ def main() -> int:
     lm = serve_phase(dev, card)
     b3_rows = lm_timings(dev, card, lm)
     b3 = next(r for r in b3_rows if r["route"] == "tc" and r["S"] == LM_BUCKETS[-1])
+
+    # 10. MoE, SSM and hybrid serving; the card cannot hold qwen3-8b beside
+    # deepseek-moe-16b
+    del lm["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = {}
+    for label, cfg, checks in (
+            ("10a", get_config(MOE_ARCH), moe_checks(dev, card)),
+            ("10b", get_config(SSM_ARCH), ssm_checks(dev, card)),
+            ("10c", get_config(HYBRID_ARCH).reduced(), hybrid_checks(dev))):
+        served[cfg.name] = family_serve(dev, card, label, cfg, checks)
+        gc.collect()
+        torch.cuda.empty_cache()
+    b3_serve = {LM_ARCH: lm["launches"]}
+    b3_serve.update({arch: run["launches"] for arch, run in served.items()})
     log(f"whole script {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -1868,12 +2335,19 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
-         "launches": lm["launches"]["flash_attention"], "max_abs_err": b3_err,
+         "launches": sum(c.get("flash_attention", 0) for c in b3_serve.values()),
+         "launches_per_serve_run": {arch: c.get("flash_attention", 0)
+                                    for arch, c in b3_serve.items()},
+         "max_abs_err": b3_err,
+         "max_abs_err_serving": {arch: run["flash_max_abs_err"]
+                                 for arch, run in served.items()
+                                 if "flash_max_abs_err" in run},
          "ms": b3["ms"], "plain_ms": b3["plain_ms"], "bound_ms": b3["bound_ms"],
          "bound_by": b3["bound_by"], "library_ms": b3["library_ms"],
          "shape": "bf16 causal (1, 32, S, 128) over (1, 8, S, 128), S = 512, "
                   "tensor-core route, device time",
-         "launches_by_route": {r: lm["launches"].get(f"flash_attention_{r}", 0)
+         "launches_by_route": {r: sum(c.get(f"flash_attention_{r}", 0)
+                                      for c in b3_serve.values())
                                for r in ("tc", "fma")},
          "hgmma_instructions": n_hgmma,
          "per_shape": b3_rows},

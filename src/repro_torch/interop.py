@@ -99,26 +99,34 @@ def segment_batch_from_numpy(xy, valid, frame_valid, poses_R, poses_t, ref_R,
         *(_tensor(a, f32, dev) for a in (poses_R, poses_t, ref_R, ref_t)))
 
 
-# Leaves the reference keeps in float32 whatever the model dtype (norm scales).
-_FLOAT32_LEAVES = ("scale", "q_norm", "k_norm")
+# Leaves the reference keeps in float32 whatever the model dtype, by the
+# end of their path: norm scales, the MoE router, Mamba-2's per-head
+# parameters and its gated norm.
+_FLOAT32_PATHS = (("scale",), ("q_norm",), ("k_norm",), ("router", "w"),
+                  ("mamba", "A_log"), ("mamba", "dt_bias"), ("mamba", "D"),
+                  ("mamba", "norm"))
 
 
-def _leaf_tensor(a, name: str, dtype, device: torch.device) -> torch.Tensor:
+def _keeps_float32(path: tuple[str, ...]) -> bool:
+    return any(path[-len(end):] == end for end in _FLOAT32_PATHS)
+
+
+def _leaf_tensor(a, path: tuple[str, ...], dtype, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes: torch cannot take it directly
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # exact
     else:
         t = torch.from_numpy(np.array(a))  # a writable copy
-    if dtype is not None and t.is_floating_point() and name not in _FLOAT32_LEAVES:
+    if dtype is not None and t.is_floating_point() and not _keeps_float32(path):
         t = t.to(dtype)
     return t.to(device)
 
 
-def _convert(tree, dtype, device, index=None, name=""):
+def _convert(tree, dtype, device, index=None, path=()):
     if isinstance(tree, Mapping):
-        return {k: _convert(v, dtype, device, index, k) for k, v in tree.items()}
+        return {k: _convert(v, dtype, device, index, path + (k,)) for k, v in tree.items()}
     a = np.asarray(tree)
-    return _leaf_tensor(a if index is None else a[index], name, dtype, device)
+    return _leaf_tensor(a if index is None else a[index], path, dtype, device)
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig, *, device=None,
@@ -129,11 +137,12 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig, *, device=Non
     The reference stacks each pattern position's layers on a leading
     super-block axis inside a `blocks` tuple; the port keeps one dict per
     layer, in order. bfloat16 leaves go through float32, which holds them
-    exactly. `dtype`, when given, casts every floating leaf except the
-    norm scales, which the reference keeps in float32 at any model dtype.
+    exactly. `dtype`, when given, casts every floating leaf except those
+    the reference keeps in float32 at any model dtype (`_FLOAT32_PATHS`:
+    norm scales, the MoE router, Mamba-2's A_log, dt_bias, D and norm).
     """
     dev = resolve_device(device)
-    out = {k: _convert(v, dtype, dev, name=k) for k, v in tree.items() if k != "blocks"}
+    out = {k: _convert(v, dtype, dev, path=(k,)) for k, v in tree.items() if k != "blocks"}
     blocks = tree["blocks"]
     pattern = cfg.pattern()
     if len(blocks) != len(pattern):

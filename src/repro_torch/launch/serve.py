@@ -1,14 +1,19 @@
 """Serving launcher: continuous-batching engine demo.
 
-On the card, at full width (random bf16 weights):
+On the card, at full width (random bf16 weights; any LM arch that fits
+one card: qwen3-8b, deepseek-moe-16b, mamba2-2.7b, ...):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --requests 12 --slots 4 --max-new 16 [--int8-kv]
 
-On the CPU, at the reduced width:
+jamba-1.5-large-398b (about 795 GB in bf16) and kimi-k2-1t-a32b do not
+fit one card: add `--reduced`. On the CPU, at the reduced width:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \
         --reduced --device cpu
+
+SSM and hybrid archs (mamba2-2.7b, jamba) prefill each prompt at its
+exact length; the others pad it to a bucket.
 """
 from __future__ import annotations
 

@@ -1,2 +1,2 @@
-"""LM substrate of the port: layers, attention, KV cache, composed models
-(attention-only families; MoE and Mamba-2 wait for their slices)."""
+"""LM substrate of the port: layers, attention, KV cache, MoE, Mamba-2 and
+the composed models of every LM family."""

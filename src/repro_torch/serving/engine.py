@@ -5,12 +5,15 @@ Counterpart of `repro.serving.engine`, on one device:
     decodes one token for every slot, each at its own length;
   * finished slots are refilled from the queue between device steps;
   * each admitted request is prefilled alone, right-padded to the
-    smallest bucket that holds it, and its KV cache is spliced into its
-    slot's rows;
+    smallest bucket that holds it (SSM and hybrid archs: at its exact
+    length, since padding would run through the recurrent state), and its
+    KV caches and SSM states are spliced into its slot's rows on the
+    device;
   * optional int8 KV cache (`EngineConfig.kv_quantized`).
 
 Sampling runs on the host in numpy, as in the reference. The engine's KV
-cache is bf16 whatever the weights' dtype, as the reference's is.
+cache is bf16 and its SSM states float32 whatever the weights' dtype, as
+the reference's are.
 """
 from __future__ import annotations
 
@@ -71,8 +74,11 @@ class Engine:
         self.queue.append(req)
 
     def bucket_for(self, p: int) -> int:
-        """The smallest prefill bucket that holds a p-token prompt (p itself
-        past the largest)."""
+        """The prefill length of a p-token prompt: p itself for SSM and
+        hybrid archs, else the smallest bucket that holds it (p past the
+        largest)."""
+        if self.cfg.ssm is not None:
+            return p
         return next((x for x in self.ecfg.prefill_buckets if x >= p),
                     max(self.ecfg.prefill_buckets[-1], p))
 
@@ -83,7 +89,7 @@ class Engine:
                 continue
             req = self.queue.pop(0)
             p = len(req.prompt)
-            # padding right of the read position is causally inert
+            # padding right of the read position is causally inert to attention
             prompt = np.zeros((1, self.bucket_for(p)), np.int64)
             prompt[0, :p] = req.prompt
             logits, pstate = M.prefill(self.params, self._tensor(prompt), self.cfg,

@@ -359,6 +359,35 @@ def test_cuda_engine_reduced_matches_cpu(dev):
     assert out[0] == out[1]
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_cuda_family_engine_reduced_matches_cpu(dev, arch):
+    """The reduced MoE, SSM and hybrid archs served on the card in float32
+    weights: B3 once per attention layer of every prefill (none for the
+    SSM arch), SSM and hybrid prompts prefilled at their exact lengths, and
+    the greedy tokens equal the CPU engine's."""
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           dtype=torch.float32, device="cpu")
+    params_dev = _to(params, dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=p).astype(np.int32)
+               for p in (5, 11, 30, 7)]
+    ecfg = EngineConfig(slots=2, max_len=64, prefill_buckets=(16, 32))
+    out = []
+    for p in (params, params_dev):
+        eng = Engine(cfg, p, ecfg, eos_id=-1)
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=6) for i, pr in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        cuda.launch_counts.clear()
+        eng.run_until_done(1000)
+        out.append([r.generated for r in reqs])
+    n_attn = cfg.pattern().count("attn") * cfg.n_superblocks()
+    assert cuda.launch_counts["flash_attention"] == n_attn * len(prompts)
+    assert out[0] == out[1]
+
+
 def _stream_scene(n_planes: int = 32):
     """Events of a 24-step arc (on the host), their host-aggregated 1024-event
     frames, the trajectory, the DSI config and the kernel options."""

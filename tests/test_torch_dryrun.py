@@ -15,6 +15,7 @@ import json
 import resource
 
 import pytest
+import torch
 
 from repro.configs import get_config as j_get_config
 from repro.configs import shapes as j_shapes
@@ -90,11 +91,46 @@ def test_skip_reasons_name_what_is_missing():
             else:
                 assert "A7" in rec["skipped"] and "distributed/sharding.py" in rec["skipped"]
     assert "A7" in dryrun.run_cell("qwen3-8b", "train_4k")["skipped"]
-    moe = dryrun.run_cell("deepseek-moe-16b", "prefill_32k")["skipped"]
-    assert "MoE" in moe and "A7" in moe
-    ssm = dryrun.run_cell("mamba2-2.7b", "decode_32k")["skipped"]
-    assert "Mamba-2" in ssm and "A7" in ssm
+    for arch in ("deepseek-moe-16b", "kimi-k2-1t-a32b", "mamba2-2.7b",
+                 "jamba-1.5-large-398b"):
+        assert "A7" in dryrun.run_cell(arch, "train_4k")["skipped"]
+        for cell in ("prefill_32k", "decode_32k", "long_500k"):
+            # the serving cells trace, where the reference runs them
+            assert dryrun.port_skip(dryrun.LM_CELLS[cell], "single") is None
     assert "sub-quadratic" in dryrun.run_cell("qwen3-8b", "long_500k")["skipped"]
+    assert "sub-quadratic" in dryrun.run_cell("deepseek-moe-16b", "long_500k")["skipped"]
+
+
+@pytest.mark.parametrize("arch,cell", [("deepseek-moe-16b", "prefill_32k"),
+                                       ("jamba-1.5-large-398b", "decode_32k"),
+                                       ("mamba2-2.7b", "long_500k")])
+def test_moe_and_ssm_cells_trace_on_meta(arch, cell):
+    """MoE, hybrid and SSM serving cells at full width, on meta tensors:
+    B3 once per attention layer of a prefill, the decode state's float32
+    SSM states among the arguments."""
+    rec = dryrun.run_cell(arch, cell, "single", device="meta")
+    assert "skipped" not in rec and rec["roofline"]["flops"] > 0
+    cfg = dryrun.get_config(arch)
+    n_attn = cfg.pattern().count("attn") * cfg.n_superblocks()
+    assert len(rec["kernels"]) == (n_attn if cell.startswith("prefill") else 0)
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        ssd = (sc.num_heads(cfg.d_model) * sc.d_state * sc.head_dim * 4
+               * cfg.pattern().count("mamba") * cfg.n_superblocks())
+        assert rec["memory"]["argument_bytes"] > ssd * dryrun.LM_CELLS[cell].global_batch
+
+
+def test_an_operation_without_meta_kernel_skips_its_cell(monkeypatch):
+    """A step that reaches an operation fake tensors cannot run is recorded
+    as skipped, naming the operation."""
+    from torch._subclasses.fake_tensor import UnsupportedOperatorException
+
+    def analyze(step, *args, fake=None):
+        raise UnsupportedOperatorException(torch.ops.aten.searchsorted.Tensor)
+
+    monkeypatch.setattr(dryrun.ga, "analyze", analyze)
+    rec = dryrun.run_cell("deepseek-moe-16b", "decode_32k", device="meta")
+    assert "aten.searchsorted.Tensor" in rec["skipped"] and "meta kernel" in rec["skipped"]
 
 
 def test_records_summarize_and_report(tmp_path, capsys):
