@@ -171,7 +171,28 @@ Phases, each asserting, none caught:
      decode_step_batched under torch.cuda.set_sync_debug_mode("error") (no
      host sync), its ms against the weight-streaming bound, its launches
      and busy share under the profiler, peak memory and the phase's
-     seconds.
+     seconds;
+  11. trains, after phase 10 has freed its weights: (a) stablelm-3b at
+     full width (2.80 B parameters, random bf16 weights from a generator
+     on the card, float32 m and v, remat, TokenStream batches of
+     TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_MICROBATCHES microbatches):
+     TRAIN_WARM_STEPS warm steps, then TRAIN_TIMED_STEPS timed steps under
+     set_sync_debug_mode("error") (no host sync); every loss and grad
+     norm finite and the last loss below the first; step ms, tokens/s,
+     peak memory and the bound (`launch/roofline.py::train_step_bound`:
+     8·N·T FLOPs at the bf16 peak), then one more step under the profiler
+     (launches, device ms by kernel kind, busy share); (b) the reduced
+     deepseek-moe-16b, mamba2-2.7b and jamba in float32 (TF32 off),
+     TRAIN_CHECK_STEPS steps on the card and on the CPU from the same
+     weights and batches: losses within TRAIN_LOSS_ATOL, the first grad
+     norm within TRAIN_GNORM_RTOL, the card's steps under
+     set_sync_debug_mode("error"); (c) `repro_torch.examples.train_lm` at
+     its ~100M config for TRAIN_LM_STEPS steps (the loss falls; a
+     straggler drain is logged and the example restarted), its
+     checkpoint restored bitwise, the example resumed from it for
+     TRAIN_LM_MORE steps, and `repro_torch.examples.serve_lm` with its
+     defaults. No kernel runs in a train step; B3 runs in serve_lm's
+     prefills.
 
 At the end it prints, each on a line of its own: one JSON object for the
 kernels (all three; flash_attention's launches count phases 7 and 10's
@@ -184,6 +205,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -231,6 +253,37 @@ SSM_TIMED_LENS = (32, 128, 512)
 # deepseek-moe-16b layers kept for its float32 prefill, kernel vs plain
 MOE_F32_LAYERS = 2
 SSM_CHECK_LAYERS, SSM_CHECK_PROMPT, SSM_CHECK_STEPS = 2, 300, 16
+# phase 11: training. 11a: the dense arch at full width, bf16 parameters,
+# float32 m and v, remat, 2 microbatches of the global batch
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 8, 512, 2
+TRAIN_WARM_STEPS, TRAIN_TIMED_STEPS = 2, 6
+# Adam's first updates move every weight by about the learning rate in
+# the gradient's sign, so a 2,560-wide layer's outputs shift by up to
+# 2,560 x lr of their inputs' size: at random init a peak of 6e-4 sent
+# stablelm-3b's loss from 11.41 to 13.22 after one step at 3e-4
+TRAIN_PEAK_LR = 3e-5
+# kernel kinds a train step's device time is summed by (name substrings);
+# the rest is "other"
+TRAIN_KERNEL_KINDS = (
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "Kernel2")),
+    ("optimizer foreach", ("multi_tensor_apply",)),
+    ("copies and casts", ("copy",)),
+    ("reductions", ("reduce", "norm", "softmax", "logsumexp")),
+    ("elementwise", ("elementwise",)),
+)
+# 11b: the reduced MoE, SSM and hybrid archs in float32 (TF32 off), card
+# against CPU on the same weights and batches: each step's loss within
+# TRAIN_LOSS_ATOL, the first step's grad norm within TRAIN_GNORM_RTOL (the
+# CPU tests hold the port to the reference within 2e-4 and 1e-3:
+# tests/test_torch_training.py)
+TRAIN_CHECK_ARCHS = (MOE_ARCH, SSM_ARCH, HYBRID_ARCH)
+TRAIN_CHECK_STEPS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 3, 4, 32
+TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL = 2e-4, 1e-3
+# 11c: repro_torch.examples.train_lm (~100M) for this many steps, then
+# resumed from its checkpoint for TRAIN_LM_MORE
+TRAIN_LM_STEPS, TRAIN_LM_MORE = 20, 10
+TRAIN_LM_RESTARTS = 3  # straggler drains tolerated per train_lm run, each resumed
 GRAPH_CALLS = 20  # calls captured in one CUDA graph for a device time
 PROFILER_TRACES = 3  # traces of a profiler cross-check that may return no records
 # launches in one profiled prefill of bucket 512 on an H100, in every trace
@@ -1298,6 +1351,220 @@ def hybrid_checks(dev):
     return checks
 
 
+def staged_batches(data, first: int, n: int, dev) -> list[dict]:
+    """TokenStream batches first..first+n-1 on the card, copied before any
+    timed step (a copy from pageable host memory synchronizes)."""
+    import torch
+
+    out = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
+           for i in range(first, first + n)]
+    torch.cuda.synchronize()
+    return out
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase 11a: stablelm-3b at full width trains on the card. Random bf16
+    weights from a generator on the card, float32 m and v, remat on, the
+    global batch of TRAIN_BATCH x TRAIN_SEQ TokenStream tokens in
+    TRAIN_MICROBATCHES microbatches. TRAIN_WARM_STEPS warm steps, then
+    TRAIN_TIMED_STEPS timed steps under set_sync_debug_mode("error") (no
+    host sync inside a step). Every loss and grad norm finite, the last
+    loss below the first. Step ms and tokens/s (host clock around the timed
+    steps, synchronized at the end), peak memory, the launches and busy
+    share of one more step under the profiler, and the step's bound
+    (`launch/roofline.py::train_step_bound`)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import train_step_bound
+    from repro_torch.training.data import DataConfig, TokenStream
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainOptions, init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(TRAIN_ARCH)
+    n_steps = TRAIN_WARM_STEPS + TRAIN_TIMED_STEPS
+    opts = TrainOptions(microbatches=TRAIN_MICROBATCHES, remat=True, param_dtype=torch.bfloat16,
+                        opt=AdamWConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARM_STEPS,
+                                        total_steps=n_steps))
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, opts, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_phase
+    n_params = sum(t.numel() for t in pytree.tree_leaves(state.params))
+    state_gb = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(state)) / 1e9
+    log(f"[{card}] {cfg.name}: {n_params / 1e9:.3f} B parameters; parameters, m and v "
+        f"take {state_gb:.2f} GB")
+    step = make_train_step(cfg, opts)
+    data = TokenStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batches = staged_batches(data, 0, n_steps + 1, dev)
+    metrics = []
+    t0 = time.perf_counter()
+    for b in batches[:TRAIN_WARM_STEPS]:
+        state, m = step(state, b)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches[TRAIN_WARM_STEPS:n_steps]:
+            state, m = step(state, b)
+            metrics.append(m)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    log(f"{cfg.name} train: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in gnorms]}; {TRAIN_TIMED_STEPS} timed steps under "
+        f"set_sync_debug_mode('error'): no host sync")
+    assert all(map(math.isfinite, losses + gnorms)), (losses, gnorms)
+    assert losses[-1] < losses[0], losses
+    assert int(state.opt.step) == n_steps
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound, bound_by = train_step_bound(n_params, tokens, remat=True)
+    log(f"[{card}] {cfg.name} train step ({TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"{TRAIN_MICROBATCHES} microbatches, remat, bf16 params, float32 m/v): "
+        f"{step_ms:.2f} ms, {tokens / (step_ms / 1e3):,.0f} tokens/s; bound "
+        f"{bound:.2f} ms ({bound_by}; 8·N·T FLOPs at 989 TFLOP/s against AdamW's "
+        f"traffic at 3.35 TB/s), bound share "
+        f"{bound / step_ms:.3f}; peak memory {peak_gb:.2f} GB")
+
+    def one_step():
+        step(state, batches[n_steps])
+
+    t0 = time.perf_counter()
+    wall, rows = profile_once(one_step)
+    busy = sum(r[1] for r in rows)
+    n_launch = sum(r[2] for r in rows)
+    by_kind: dict[str, list] = {}
+    for name, ms, calls in rows:
+        kind = next((k for k, parts in TRAIN_KERNEL_KINDS if any(x in name for x in parts)),
+                    "other")
+        acc = by_kind.setdefault(kind, [0.0, 0])
+        acc[0] += ms
+        acc[1] += calls
+    log(f"[{card}] {cfg.name} train step under torch.profiler: wall {wall:.2f} ms, device "
+        f"kernels {busy:.2f} ms in {n_launch} launches; busy share {busy / wall:.3f} of the "
+        f"traced wall, {busy / step_ms:.3f} of the untraced step; by kind: "
+        + ", ".join(f"{k} {v[0]:.2f} ms in {v[1]}" for k, v in
+                    sorted(by_kind.items(), key=lambda kv: -kv[1][0])))
+    for name, ms, calls in rows[:12]:
+        log(f"  {ms:9.3f} ms  {calls:5d} calls  {name[:90]}")
+    log(f"[{card}] phase 11a ({cfg.name}): init {t_init:.1f} s, {TRAIN_WARM_STEPS} warm steps "
+        f"{t_warm:.1f} s, profile {time.perf_counter() - t0:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    out = {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3), "peak_gb": peak_gb,
+           "bound_ms": bound, "launches": n_launch, "device_ms": busy, "losses": losses}
+    del state, step, batches, metrics
+    return out
+
+
+def train_card_vs_cpu(dev, card: str) -> None:
+    """Phase 11b: the reduced MoE, SSM and hybrid archs trained in float32
+    on the card and on the CPU from the same weights and batches (2
+    microbatches, remat): losses and the first step's grad norm agree; the
+    card's steps run under set_sync_debug_mode("error")."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.training.data import DataConfig, TokenStream
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainOptions, init_train_state, make_train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "the port keeps TF32 off"
+    for arch in TRAIN_CHECK_ARCHS:
+        cfg = get_config(arch).reduced()
+        opts = TrainOptions(microbatches=2, remat=True, param_dtype=torch.float32,
+                            opt=AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20))
+        cpu_state = init_train_state(torch.Generator().manual_seed(0), cfg, opts, device="cpu")
+        card_state = pytree.tree_map(lambda t: t.to(dev, copy=True), cpu_state)
+        step = make_train_step(cfg, opts)
+        data = TokenStream(DataConfig(cfg.vocab_size, TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH))
+        on_card = staged_batches(data, 0, TRAIN_CHECK_STEPS, dev)
+        got, want = [], []
+        for i in range(TRAIN_CHECK_STEPS):
+            cpu_state, m = step(cpu_state, {k: torch.from_numpy(v)
+                                            for k, v in data.batch(i).items()})
+            want.append({k: float(v) for k, v in m.items()})
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                card_state, m = step(card_state, on_card[i])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got.append({k: float(v) for k, v in m.items()})
+        for i, (g, w) in enumerate(zip(got, want)):
+            for k in ("loss", "nll", "zloss", "moe_aux"):
+                assert abs(g[k] - w[k]) <= TRAIN_LOSS_ATOL, (arch, i, k, g[k], w[k])
+        assert abs(got[0]["grad_norm"] - want[0]["grad_norm"]) <= \
+            TRAIN_GNORM_RTOL * want[0]["grad_norm"], (arch, got[0], want[0])
+        log(f"[{card}] {cfg.name} float32 train, card vs CPU over {TRAIN_CHECK_STEPS} steps: "
+            f"losses {[round(g['loss'], 6) for g in got]} vs "
+            f"{[round(w['loss'], 6) for w in want]} (max diff "
+            f"{max(abs(g['loss'] - w['loss']) for g, w in zip(got, want)):.2e}, limit "
+            f"{TRAIN_LOSS_ATOL}), first grad norm {got[0]['grad_norm']:.6f} vs "
+            f"{want[0]['grad_norm']:.6f}; no host sync in a card step")
+
+
+def train_examples_phase(card: str) -> None:
+    """Phase 11c: `repro_torch.examples.train_lm` at its ~100M config for
+    TRAIN_LM_STEPS steps (the loss falls), its checkpoint restored bitwise,
+    then the example resumed from it for TRAIN_LM_MORE steps (the step
+    counter carries on); `repro_torch.examples.serve_lm` with its defaults
+    (every request served in full, the int8 cache smaller)."""
+    import tempfile
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.examples import serve_lm, train_lm
+    from repro_torch.training import checkpoint as ckpt
+
+    def train(steps: int, tmp: str) -> list[dict]:
+        """The example run to `steps` as a user runs it: after a straggler
+        drain (checkpoint, then exit) it is started again and resumes."""
+        runs = []
+        while not runs or ckpt.latest(tmp) != steps:
+            assert len(runs) <= TRAIN_LM_RESTARTS, f"{len(runs)} drains before step {steps}"
+            runs.append(train_lm.main(["--steps", str(steps), "--ckpt-dir", tmp]))
+        return runs
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        first = train(TRAIN_LM_STEPS, tmp)
+        losses = [x for r in first for x in r["losses"]]
+        state = first[-1]["state"]
+        assert len(losses) == TRAIN_LM_STEPS and all(map(math.isfinite, losses))
+        assert losses[-1] < losses[0], losses
+        back = ckpt.restore(tmp, TRAIN_LM_STEPS, state, train_lm.LM100M)
+        for a, b in zip(pytree.tree_leaves(state), pytree.tree_leaves(back)):
+            assert a.dtype == b.dtype and b.is_cuda and torch.equal(a, b)
+        more = train(TRAIN_LM_STEPS + TRAIN_LM_MORE, tmp)
+        assert more[0]["start_step"] == TRAIN_LM_STEPS
+        assert sum(len(r["losses"]) for r in more) == TRAIN_LM_MORE
+        assert int(more[-1]["state"].opt.step) == TRAIN_LM_STEPS + TRAIN_LM_MORE
+    # a run that drained returns before it counts its tokens/s
+    drains = [r["start_step"] + len(r["losses"]) for r in first + more
+              if "tokens_per_s" not in r]
+    tok_s = [r["tokens_per_s"] for r in first if "tokens_per_s" in r]
+    log(f"[{card}] train_lm (lm-100m): {TRAIN_LM_STEPS} steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, {tok_s[-1] if tok_s else float('nan'):,.0f} tokens/s end to end "
+        f"(its last run); straggler drains {len(drains)} (at steps {drains}, each resumed from its "
+        f"checkpoint); checkpoint restored bitwise; resumed at step "
+        f"{more[0]['start_step']} for {TRAIN_LM_MORE} steps")
+    served = serve_lm.main([])
+    assert served["generated"] == [24] * (2 * 10), served["generated"]
+    assert 0 < served["int8"]["kv_bytes"] < served["bf16"]["kv_bytes"]
+    log(f"[{card}] serve_lm: bf16 {served['bf16']['tok_s']:.1f} tok/s, int8 "
+        f"{served['int8']['tok_s']:.1f} tok/s, agreement {served['agreement']:.3f}; "
+        f"phase 11c {time.perf_counter() - t0:.1f} s")
+
+
 def emvs_config():
     """The EMVS main path's camera (DAVIS240), DSI (128 planes over
     0.6-4.5 m), options (fused kernel, nearest, Table-1 quantized) and scene."""
@@ -2298,6 +2565,15 @@ def main() -> int:
         served[cfg.name] = family_serve(dev, card, label, cfg, checks)
         gc.collect()
         torch.cuda.empty_cache()
+    # 11. training
+    t0 = time.perf_counter()
+    trained = train_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_card_vs_cpu(dev, card)
+    train_examples_phase(card)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s; {TRAIN_ARCH} step "
+        f"{trained['step_ms']:.2f} ms against a {trained['bound_ms']:.2f} ms bound")
     b3_serve = {LM_ARCH: lm["launches"]}
     b3_serve.update({arch: run["launches"] for arch, run in served.items()})
     log(f"whole script {time.perf_counter() - t_start:.1f} s")

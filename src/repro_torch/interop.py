@@ -112,9 +112,10 @@ def _keeps_float32(path: tuple[str, ...]) -> bool:
 
 
 def _leaf_tensor(a, path: tuple[str, ...], dtype, device: torch.device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes: torch cannot take it directly
-        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # exact
+    if isinstance(a, torch.Tensor):
+        t = a.detach().clone()
+    elif np.asarray(a).dtype.name == "bfloat16":  # ml_dtypes: torch cannot take it
+        t = torch.from_numpy(np.asarray(a).astype(np.float32)).to(torch.bfloat16)  # exact
     else:
         t = torch.from_numpy(np.array(a))  # a writable copy
     if dtype is not None and t.is_floating_point() and not _keeps_float32(path):
@@ -125,14 +126,15 @@ def _leaf_tensor(a, path: tuple[str, ...], dtype, device: torch.device) -> torch
 def _convert(tree, dtype, device, index=None, path=()):
     if isinstance(tree, Mapping):
         return {k: _convert(v, dtype, device, index, path + (k,)) for k, v in tree.items()}
-    a = np.asarray(tree)
+    a = tree if isinstance(tree, torch.Tensor) else np.asarray(tree)
     return _leaf_tensor(a if index is None else a[index], path, dtype, device)
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig, *, device=None,
                          dtype=None) -> dict:
     """The port's LM parameters from the reference's parameter tree, as
-    nested dicts of numpy arrays (`jax.tree.map(np.asarray, params)`).
+    nested dicts of numpy arrays (`jax.tree.map(np.asarray, params)`) or
+    of tensors in the same stacked layout (`lm_params_stacked`).
 
     The reference stacks each pattern position's layers on a leading
     super-block axis inside a `blocks` tuple; the port keeps one dict per
@@ -142,11 +144,48 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig, *, device=Non
     norm scales, the MoE router, Mamba-2's A_log, dt_bias, D and norm).
     """
     dev = resolve_device(device)
-    out = {k: _convert(v, dtype, dev, path=(k,)) for k, v in tree.items() if k != "blocks"}
     blocks = tree["blocks"]
     pattern = cfg.pattern()
     if len(blocks) != len(pattern):
         raise ValueError(f"{len(blocks)} block groups for pattern {pattern}")
-    out["blocks"] = [_convert(blocks[i], dtype, dev, index=sb)
-                     for sb in range(cfg.n_superblocks()) for i in range(len(pattern))]
-    return out
+    return {k: [_convert(blocks[i], dtype, dev, index=sb)
+                for sb in range(cfg.n_superblocks()) for i in range(len(pattern))]
+            if k == "blocks" else _convert(v, dtype, dev, path=(k,))
+            for k, v in tree.items()}
+
+
+def lm_params_stacked(params: Mapping[str, Any], cfg: ArchConfig) -> dict:
+    """The inverse of `lm_params_from_numpy`, in tensors: the port's
+    per-layer `blocks` list regrouped as the reference's tuple over pattern
+    positions, each leaf stacked over super-blocks on a new leading axis
+    (on the leaves' device, in their dtypes). Other entries are kept. Any
+    tree shaped like the parameters converts (AdamW's m and v too)."""
+    pattern = cfg.pattern()
+    n, n_sb = len(pattern), cfg.n_superblocks()
+    blocks = params["blocks"]
+    if len(blocks) != n * n_sb:
+        raise ValueError(f"{len(blocks)} layers for {n_sb} super-blocks of {pattern}")
+
+    def stack(layers):
+        if isinstance(layers[0], Mapping):
+            return {k: stack([layer[k] for layer in layers]) for k in layers[0]}
+        return torch.stack([t.detach() for t in layers])
+
+    stacked = tuple(stack([blocks[sb * n + i] for sb in range(n_sb)]) for i in range(n))
+    return {k: stacked if k == "blocks" else v for k, v in params.items()}
+
+
+def lm_params_to_numpy(params: Mapping[str, Any], cfg: ArchConfig) -> dict:
+    """The reference's parameter tree from the port's: `lm_params_stacked`,
+    then each leaf on the host as numpy, bfloat16 as float32 (exact; numpy
+    has no bfloat16 of its own). `lm_params_from_numpy` of the result, at
+    the source's dtype, gives the source back bitwise."""
+    def host(tree):
+        if isinstance(tree, Mapping):
+            return {k: host(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(host(v) for v in tree)
+        t = tree.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+    return host(lm_params_stacked(params, cfg))

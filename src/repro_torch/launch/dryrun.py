@@ -68,8 +68,8 @@ def port_skip(cell: ShapeCell, mesh_kind: str) -> str | None:
         return ("multi-card mesh not ported yet: ROADMAP A7 "
                 "(distributed/sharding.py)")
     if cell.kind == "train":
-        return ("training step not ported yet: ROADMAP A7 (training/*, "
-                "launch/train.py)")
+        return ("sharded train step (`lower_train_step` over a mesh) not ported "
+                "yet: ROADMAP A7b")
     return None
 
 

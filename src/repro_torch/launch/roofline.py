@@ -16,7 +16,8 @@ The same peaks give the least time of each hand-written kernel on the
 inputs it is handed (`sweep_bound` for B1, `depth_argmax_bound` for B2,
 `flash_bound` for B3): each input read once and each output written once
 at the memory rate, against the kernel's operations at the peak of their
-type; the larger is the bound. `emvs_fusion_ladder` models the fusion
+type; the larger is the bound. `train_step_bound` does the same for one
+LM train step. `emvs_fusion_ladder` models the fusion
 stages of one quantized sweep dispatch.
 """
 from __future__ import annotations
@@ -45,6 +46,18 @@ def bound_ms(nbytes: float, nops: float, peak: float = PEAK_FLOPS_F32
     at `peak`, and which of the two bounds it ("bytes" or "operations")."""
     t_bytes, t_ops = nbytes / HBM_BW, nops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def train_step_bound(n_params: int, tokens: int, *, remat: bool = True
+                     ) -> tuple[float, str]:
+    """Least ms of one dense LM train step on `tokens` tokens: 6·N·T
+    FLOPs of forward and backward, 8·N·T when remat runs each super-block's
+    forward again, at the bf16 tensor-core peak (attention's score FLOPs
+    left out); against the optimizer's least traffic: each bf16 parameter
+    and its gradient read, the parameter written, float32 m and v read and
+    written (22 bytes a parameter)."""
+    flops = (8.0 if remat else 6.0) * n_params * tokens
+    return bound_ms(22.0 * n_params, flops, PEAK_FLOPS_BF16)
 
 
 def sweep_bytes(s: int, c: int, e: int, nz: int, w: int, h: int,

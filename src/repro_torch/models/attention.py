@@ -1,8 +1,8 @@
-"""GQA attention: RoPE, qk-norm, QKV-bias; prefill and decode cores.
+"""GQA attention: RoPE, qk-norm, QKV-bias; prefill, training and decode cores.
 
-Counterpart of `repro.models.attention`, serving half:
+Counterpart of `repro.models.attention`:
 
-  * `attention_core` — prefill/forward attention, through
+  * `attention_core` — prefill attention, through
     `repro_torch.kernels.flash_attention` (the hand-written kernel on the
     card, its plain version on the CPU). The reference names the Pallas
     kernel as the serving/prefill fast path but dispatches its prefill to
@@ -11,11 +11,14 @@ Counterpart of `repro.models.attention`, serving half:
     `attention_full` rounds scores and probabilities to the input dtype
     (bf16 in production); on the card the bf16 tensor-core kernel rounds
     only the probabilities to bf16, as operands of their product with V.
+  * `attention_full`, `attention_blockwise` and their dispatch
+    `attention_dense_core` (the reference's `attention_core`: full up to
+    FULL_ATTN_MAX_SEQ keys, blockwise above) — plain, differentiable
+    PyTorch, the cores `forward` and the training loss run, with the
+    reference's roundings. The kernel has no backward, so training never
+    reaches it.
   * `attention_decode` — one query against a KV cache, plain PyTorch as
     in the reference (an einsum outside any kernel there).
-
-The training cores (`attention_full`, `attention_blockwise`) wait for the
-training slice.
 """
 from __future__ import annotations
 
@@ -29,6 +32,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import dense, init_dense, rms_norm
 
 Tensor = torch.Tensor
+
+FULL_ATTN_MAX_SEQ = 8192
+BLOCKWISE_CHUNK = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +117,73 @@ def qkv_project(params: dict, x: Tensor, cfg: ArchConfig, positions: Tensor) -> 
 # ---------------------------------------------------------------------------
 # Attention cores
 # ---------------------------------------------------------------------------
+
+
+def _repeat_kv(k: Tensor, groups: int) -> Tensor:
+    if groups == 1:
+        return k
+    return torch.repeat_interleave(k, groups, dim=2)
+
+
+def attention_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True) -> Tensor:
+    """(B, S, H, D) layout; einsum core; float32 softmax."""
+    sq, hq, d = q.shape[1], q.shape[2], q.shape[3]
+    skv, hkv = k.shape[1], k.shape[2]
+    k = _repeat_kv(k, hq // hkv)
+    v = _repeat_kv(v, hq // hkv)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) / d ** 0.5
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        s = s.masked_fill(kpos > qpos, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def attention_blockwise(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                        chunk: int = BLOCKWISE_CHUNK) -> Tensor:
+    """Online softmax over KV chunks; O(S * chunk) live scores; differentiable.
+
+    The reference's rectangular schedule: every (query, KV chunk) pair is
+    computed and masked, none skipped; a Python loop over the chunks
+    stands for its scan."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if skv % chunk:
+        raise ValueError(f"attention_blockwise: {skv} keys are not a multiple of {chunk}")
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    scale = 1.0 / d ** 0.5
+    f32 = torch.float32
+    # (m, l) statistics and the accumulator in (B, Hq, Sq, ...) layout
+    m = torch.full((b, hq, sq, 1), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros((b, hq, sq, 1), dtype=f32, device=q.device)
+    acc = torch.zeros((b, hq, sq, d), dtype=f32, device=q.device)
+    for j in range(skv // chunk):
+        kb = _repeat_kv(k[:, j * chunk:(j + 1) * chunk], g)
+        vb = _repeat_kv(v[:, j * chunk:(j + 1) * chunk], g)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kb).to(f32) * scale
+        if causal:
+            kpos = j * chunk + torch.arange(chunk, device=q.device)[None, :]
+            s = s.masked_fill(kpos > qpos, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(q.dtype), vb).to(f32)
+        acc = acc * corr + pv
+        m = m_new
+    out = (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)  # (B, Hq, Sq, D)
+    return out.transpose(1, 2)  # (B, Sq, Hq, D)
+
+
+def attention_dense_core(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True
+                         ) -> Tensor:
+    """The reference's `attention_core`: full attention up to
+    FULL_ATTN_MAX_SEQ keys, blockwise above. Differentiable."""
+    if k.shape[1] <= FULL_ATTN_MAX_SEQ:
+        return attention_full(q, k, v, causal=causal)
+    return attention_blockwise(q, k, v, causal=causal)
 
 
 def attention_core(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True) -> Tensor:

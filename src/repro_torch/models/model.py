@@ -12,15 +12,21 @@ attention layer, updated in place (see `repro_torch.models.kv_cache`),
 and an `SSMState` for a Mamba-2 layer, float32 whatever the model dtype,
 which a decode step replaces in the list with the layer's new state.
 
-MoE layers run the single-device path (`models/moe.py`). Not ported yet:
-the distribution knobs of `ModelCtx` and the training loss (ROADMAP A7).
+`forward` and `loss_fn` (training) run the differentiable attention cores
+(`attention_dense_core`), with `ModelCtx(remat=True)` checkpointing each
+super-block as the reference checkpoints its scan body; prefill keeps the
+flash-attention kernel. MoE layers run the single-device path
+(`models/moe.py`). Not ported yet: the distribution knobs of `ModelCtx`
+(ROADMAP A7b).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
@@ -28,6 +34,7 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models.attention import (
     attention_core,
     attention_decode,
+    attention_dense_core,
     attention_out,
     init_attention,
     mask_padded_heads,
@@ -57,8 +64,9 @@ LayerState = Union[KVCache, m2.SSMState]
 
 @dataclasses.dataclass(frozen=True)
 class ModelCtx:
-    """Execution context. Only `kv_quantized` is ported; the reference's
-    distribution knobs raise until their slice lands."""
+    """Execution context. `kv_quantized` and `remat` (checkpoint each
+    super-block in `forward`) are ported; the reference's distribution
+    knobs raise until their slice lands."""
 
     ep_shard: Optional[Any] = None
     seq_shard: Optional[Any] = None
@@ -70,11 +78,12 @@ class ModelCtx:
 
     def __post_init__(self):
         unported = [f.name for f in dataclasses.fields(self)
-                    if f.name != "kv_quantized" and getattr(self, f.name) != f.default]
+                    if f.name not in ("kv_quantized", "remat")
+                    and getattr(self, f.name) != f.default]
         if unported:
             raise NotImplementedError(
-                f"ModelCtx fields {unported} (expert/sequence sharding, remat, "
-                "meshes) are not ported yet: ROADMAP A7")
+                f"ModelCtx fields {unported} (expert/sequence sharding, meshes) "
+                "are not ported yet: ROADMAP A7b")
 
 
 def _kinds(cfg: ArchConfig) -> list[str]:
@@ -180,42 +189,78 @@ def _logits(params: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
     return unembed(x, table)
 
 
-def _prefill_layers(params: dict, x: Tensor, cfg: ArchConfig,
-                    state: list[LayerState] | None) -> tuple[Tensor, Tensor | None]:
-    """The layer stack over a whole sequence; returns (x, summed MoE aux,
-    None without a MoE layer). With `state`, writes K/V at 0 into each
-    cache and puts each Mamba-2 layer's final state, as float32, in its
-    entry."""
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None, :]
+def _superblock(blocks: list[dict], x: Tensor, *, cfg: ArchConfig, positions: Tensor,
+                attend, state: list[LayerState] | None, first: int
+                ) -> tuple[Tensor, Tensor | None]:
+    """One super-block (the arch's layer pattern, layers `first`...) over a
+    whole sequence; returns (x, its summed MoE aux, None without a MoE
+    layer). With `state`, writes K/V at 0 into each cache and puts each
+    Mamba-2 layer's final state, as float32, in its entry."""
     aux = None
-    for i, (p, kind) in enumerate(zip(params["blocks"], _kinds(cfg))):
+    for j, (p, kind) in enumerate(zip(blocks, cfg.pattern())):
         h = rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
         if kind == "attn":
             qkv = qkv_project(p["attn"], h, cfg, positions)
-            att = mask_padded_heads(attention_core(qkv.q, qkv.k, qkv.v, causal=True), cfg)
+            att = mask_padded_heads(attend(qkv.q, qkv.k, qkv.v, causal=True), cfg)
             x = x + attention_out(p["attn"], att)
             if state is not None:
-                write_cache(state[i], qkv.k, qkv.v, 0)
+                write_cache(state[first + j], qkv.k, qkv.v, 0)
         else:
             y, st = m2.mamba2_prefill(p["mamba"], h, cfg, want_state=state is not None)
             x = x + y
             if state is not None:
-                state[i] = m2.SSMState(*(t.to(torch.float32) for t in st))
+                state[first + j] = m2.SSMState(*(t.to(torch.float32) for t in st))
         x, metrics = _ffn(p, x, cfg)
         if "moe_aux" in metrics:
             aux = metrics["moe_aux"] if aux is None else aux + metrics["moe_aux"]
     return x, aux
 
 
+def _layer_stack(params: dict, x: Tensor, cfg: ArchConfig, *, attend,
+                 state: list[LayerState] | None = None, remat: bool = False
+                 ) -> tuple[Tensor, Tensor | None]:
+    """The layer stack over a whole sequence, one super-block at a time
+    (each checkpointed with `remat`); returns (x, the MoE aux summed per
+    super-block, then over super-blocks, as the reference's scan sums it;
+    None without a MoE layer)."""
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None, :]
+    n = len(cfg.pattern())
+    aux = None
+    for sb in range(cfg.n_superblocks()):
+        run = functools.partial(_superblock, params["blocks"][sb * n:(sb + 1) * n],
+                                cfg=cfg, positions=positions, attend=attend,
+                                state=state, first=sb * n)
+        x, a = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
 def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
             frontend_embed: Tensor | None = None,
             ctx: ModelCtx = ModelCtx()) -> tuple[Tensor, Tensor]:
-    """tokens (B, S) -> (logits (B, S, V) float32, mean MoE aux loss per layer)."""
+    """tokens (B, S) -> (logits (B, S, V) float32, mean MoE aux loss per
+    layer). Differentiable: plain attention cores, never the kernel."""
     x = _embed_inputs(params, tokens, cfg, frontend_embed)
-    x, aux = _prefill_layers(params, x, cfg, None)
+    x, aux = _layer_stack(params, x, cfg, attend=attention_dense_core, remat=ctx.remat)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, x, cfg), aux / max(cfg.n_layers, 1)
+
+
+def loss_fn(params: dict, tokens: Tensor, targets: Tensor, cfg: ArchConfig, *,
+            frontend_embed: Tensor | None = None,
+            ctx: ModelCtx = ModelCtx()) -> tuple[Tensor, dict]:
+    """Next-token cross-entropy (+ MoE aux + z-loss). targets = shifted ids.
+    Returns (loss, {"nll", "zloss", "moe_aux"}), float32 scalars."""
+    logits, aux = forward(params, tokens, cfg, frontend_embed=frontend_embed, ctx=ctx)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (logz - gold).mean()
+    zloss = 1e-4 * (logz ** 2).mean()
+    moe_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
+    loss = nll + zloss + moe_w * aux
+    return loss, {"nll": nll, "zloss": zloss, "moe_aux": aux}
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
@@ -252,7 +297,7 @@ def prefill(params: dict, tokens: Tensor, cfg: ArchConfig, max_len: int, *,
                    quantized=ctx.kv_quantized, dtype=x.dtype, device=x.device)
         if kind == "attn" else None  # filled by the layer's prefill
         for kind in _kinds(cfg)]
-    x, _ = _prefill_layers(params, x, cfg, state)
+    x, _ = _layer_stack(params, x, cfg, attend=attention_core, state=state)
     at = s - 1 if logit_index is None else max(0, min(int(logit_index), s - 1))
     return _logits(params, x[:, at:at + 1], cfg), state
 

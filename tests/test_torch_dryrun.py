@@ -91,6 +91,8 @@ def test_skip_reasons_name_what_is_missing():
             else:
                 assert "A7" in rec["skipped"] and "distributed/sharding.py" in rec["skipped"]
     assert "A7" in dryrun.run_cell("qwen3-8b", "train_4k")["skipped"]
+    # the one-card step is ported; the reference lowers train_4k over a mesh
+    assert "lower_train_step" in dryrun.port_skip(dryrun.LM_CELLS["train_4k"], "single")
     for arch in ("deepseek-moe-16b", "kimi-k2-1t-a32b", "mamba2-2.7b",
                  "jamba-1.5-large-398b"):
         assert "A7" in dryrun.run_cell(arch, "train_4k")["skipped"]

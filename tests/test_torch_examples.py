@@ -7,6 +7,10 @@
   fused kernel; float and Table-1 quantized: DSI, depth and mask bitwise.
 * The examples' `main()` with `--device cpu` at small sizes; the merged
   map's outlier filter keeps exactly the reference filter's points.
+* The LM examples and the training launcher on the CPU: `train_lm --tiny`
+  lowers the loss and resumes from its checkpoint, `serve_lm` serves the
+  same traffic with bf16 and int8 caches, `launch.train --reduced`
+  resumes at the step counter.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from repro_torch.core import pipeline as tp
 from repro_torch.core.camera import CAMERAS
 from repro_torch.events import aggregation as t_agg
 from repro_torch.events import simulator as t_sim
-from repro_torch.examples import emvs_reconstruction, quickstart
+from repro_torch.examples import emvs_reconstruction, quickstart, serve_lm, train_lm
+from repro_torch.launch import train as launch_train
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -100,3 +105,55 @@ def test_emvs_reconstruction_runs_on_the_cpu(tmp_path, camera):
     saved = np.load(out)
     assert saved["points"].shape == (int(filtered.valid.sum()), 3)
     assert 0 < saved["points"].shape[0] < int(merged.valid.sum())
+
+
+class _NoStragglers:
+    """A watchdog that never fires: step times on a loaded test host are
+    no signal (tests/test_torch_checkpoint.py holds the real one)."""
+
+    def observe(self, dt: float) -> None:
+        return None
+
+
+def test_train_lm_tiny_trains_and_resumes_on_the_cpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(train_lm, "StragglerMonitor", _NoStragglers)
+    ck = str(tmp_path / "ck")
+    first = train_lm.main(["--tiny", "--device", "cpu", "--steps", "20", "--ckpt-dir", ck,
+                           "--ckpt-every", "10"])
+    assert first["start_step"] == 0 and len(first["losses"]) == 20
+    assert first["losses"][-1] < first["losses"][0] - 0.5, first["losses"]
+    assert int(first["state"].opt.step) == 20
+    again = train_lm.main(["--tiny", "--device", "cpu", "--steps", "24", "--ckpt-dir", ck])
+    assert again["start_step"] == 20 and len(again["losses"]) == 4
+    assert int(again["state"].opt.step) == 24
+    assert all(np.isfinite(again["losses"]))
+
+
+def test_serve_lm_runs_on_the_cpu():
+    out = serve_lm.main(["--device", "cpu", "--requests", "3"])
+    assert out["generated"] == [24] * 6
+    assert 0.0 <= out["agreement"] <= 1.0
+    assert 0 < out["int8"]["kv_bytes"] < out["bf16"]["kv_bytes"]
+
+
+def test_launch_train_resumes_on_the_cpu(tmp_path, capsys):
+    ck = str(tmp_path / "ck")
+    args = ["--arch", "mamba2-2.7b", "--reduced", "--device", "cpu", "--batch", "2",
+            "--seq", "16", "--ckpt-dir", ck, "--log-every", "2"]
+    run = launch_train.main(args + ["--steps", "4", "--ckpt-every", "2"])
+    assert run["start_step"] == 0 and sorted(run["losses"]) == [1, 2, 4]
+    run = launch_train.main(args + ["--steps", "6"])
+    assert run["start_step"] == 4 and int(run["state"].opt.step) == 6
+    out = capsys.readouterr().out
+    assert "[restore] resuming from step 4" in out and "[ckpt] step 2" in out
+
+
+def test_lm_entry_points_need_cpu_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "qwen3-8b", "--reduced"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm.main(["--tiny"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_lm.main([])

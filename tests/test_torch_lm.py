@@ -10,7 +10,7 @@ Tolerances:
     every activation to bf16 (2^-8 relative), at other points: XLA fuses
     and orders the matmul sums differently, and the port's prefill
     attention keeps scores and probabilities in float32 where the
-    reference's `attention_full` rounds them (ROADMAP C4);
+    reference's `attention_full` rounds them (ROADMAP §C);
   * int8 KV codes and everything integer: bitwise.
 """
 from __future__ import annotations
@@ -272,9 +272,10 @@ def test_forward_matches_reference():
 
 
 def test_bf16_prefill_attention_keeps_float32_scores():
-    """ROADMAP C4: in bf16 the port's prefill attention is the reference's
-    kernel semantics (float32 scores and probabilities), closer to
-    `attention_ref` than to `attention_full`, which rounds both to bf16."""
+    """ROADMAP §C (known divergences): in bf16 the port's prefill
+    attention is the reference's kernel semantics (float32 scores and
+    probabilities), closer to `attention_ref` than to `attention_full`,
+    which rounds both to bf16."""
     rng = np.random.default_rng(6)
     q, k, v = (rng.normal(size=s).astype(np.float32) for s in
                ((2, 32, 4, 16), (2, 32, 2, 16), (2, 32, 2, 16)))
@@ -376,9 +377,15 @@ def test_moe_and_ssm_families_serve_on_cpu(arch, capsys):
 
 
 def test_unported_ctx_fields_raise():
+    """Expert and sequence sharding and meshes wait for A7b; `remat` and
+    `kv_quantized` are ported."""
     assert TM.ModelCtx(kv_quantized=True).kv_quantized
-    with pytest.raises(NotImplementedError, match="remat"):
-        TM.ModelCtx(remat=True)
+    assert TM.ModelCtx(remat=True).remat
+    for field, value in (("ep_shard", object()), ("seq_shard", object()),
+                         ("mesh", object()), ("batch_axes", ("data",)),
+                         ("seq_axis", "model")):
+        with pytest.raises(NotImplementedError, match=rf"{field}.*A7b"):
+            TM.ModelCtx(**{field: value})
 
 
 @pytest.mark.parametrize("arch", ["musicgen-large", "llava-next-mistral-7b",
@@ -409,10 +416,17 @@ def test_other_attention_only_archs_match_reference(arch):
 # MoE, SSM and hybrid families
 # ---------------------------------------------------------------------------
 
-# SSM states in float32: within 1e-5; the hybrid's 8-layer stack carries
-# each layer's float32 differences into the next (2.86e-5 measured on the
-# reduced jamba's deepest Mamba-2 layers)
-SSM_STATE_ATOL = {"ssm": 1e-5, "hybrid": 5e-5}
+# SSM states in float32, within SSM_STATE_RTOL of the largest magnitude of
+# the layer's field. The hybrid's 8-layer stack carries each layer's float32
+# differences into the next, so its deepest Mamba-2 states differ by a
+# share of their magnitude that depends on the host's rounding: up to 1.0e-5
+# measured on an AVX-512 AMD host (layer 5's SSD state, 2.57e-5 on 2.58;
+# layer 7's is 1.13e-4 on 21.5). The reference alone moves its layer-7 SSD
+# state by 2.05e-5 when XLA:CPU is kept from fused multiply-adds
+# (`XLA_FLAGS=--xla_cpu_max_isa=AVX`); with both packages kept from them
+# the case passes (tests/test_torch_pipeline.py::
+# test_host_rounding_cases_hold_without_fma). The one-layer SSM measures 3.8e-7.
+SSM_STATE_RTOL = {"ssm": 3e-6, "hybrid": 3e-5}
 FAMILY_ARCHS = ["deepseek-moe-16b", "kimi-k2-1t-a32b", "mamba2-2.7b",
                 "jamba-1.5-large-398b"]
 
@@ -430,8 +444,9 @@ def family_lm(request):
 
 def _family_states_close(tstate, jstate, cfg, dtype: str) -> None:
     """Per-layer port states against the reference's per-position stacks:
-    KV caches as `_caches_close`, SSM states within SSM_STATE_ATOL in
-    float32 (within 0.1 and 5% with bf16 activations, as the caches)."""
+    KV caches as `_caches_close`, SSM states within SSM_STATE_RTOL of their
+    magnitude in float32 (within 0.1 and 5% with bf16 activations, as the
+    caches)."""
     pat = cfg.pattern()
     assert len(tstate) == cfg.n_layers
     for i, ts in enumerate(tstate):
@@ -445,7 +460,7 @@ def _family_states_close(tstate, jstate, cfg, dtype: str) -> None:
             assert str(got.dtype) == f"torch.{want.dtype}", (i, name)
             if dtype == "float32":
                 atol = (F32_CACHE_ATOL if pat[i % len(pat)] == "attn"
-                        else SSM_STATE_ATOL[cfg.family])
+                        else SSM_STATE_RTOL[cfg.family] * float(np.abs(_np(want)).max()))
                 np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=0,
                                            err_msg=f"layer {i} {name}")
             else:

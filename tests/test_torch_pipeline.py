@@ -6,17 +6,33 @@ reference runs its one-hot matmul formulation, which its own tests hold
 bitwise to its fused-kernel path. On the CPU the port's "kernel"
 formulation takes the kernels' plain versions.
 
-Tolerances: nearest voting (float and Table-1 quantized) is bitwise on dsi,
-depth and mask for every formulation, and so is bilinear except the port's
-scatter formulation, whose float scatter-add sums in another order than
-XLA's scatter (dsi within BILINEAR_ATOL; depth within BILINEAR_ATOL of
-its value in planes; mask bitwise).
+Tolerances: nearest voting (float and Table-1 quantized) and quantized
+bilinear voting are bitwise on dsi, depth and mask for every formulation.
+Float bilinear voting is held to allclose, as ROADMAP's north star says:
+its weights pass through products that both packages contract to fused
+multiply-adds only where the host has FMA (XLA:CPU by its instruction
+set, the port's `torch.addcmul` by PyTorch's CPU kernel dispatch). On one
+frame set, the kernel and matmul formulations keep every DSI element and
+confidence within 2 float32 ulps of the reference's with FMA (AVX-512
+host) and within 2 with both packages kept from it (`XLA_FLAGS=
+--xla_cpu_max_isa=AVX`, `ATEN_CPU_CAPABILITY=default`, as on an x86 host
+without FMA3; `test_host_rounding_cases_hold_without_fma` reruns these
+cases so). Only mixed settings, which no single host gives, move them further
+(9.6e-5, the reference's own move under the XLA flag alone). They are
+held to BILINEAR_ULPS; the scatter formulation, whose float scatter-add
+also sums in another order than XLA's scatter, within BILINEAR_ATOL.
+Depth is within BILINEAR_ATOL of its value in planes for both; masks,
+frame ranges, dtypes and valid-point counts stay equal.
 """
 from __future__ import annotations
 
 import ast
 import dataclasses
+import os
 import pathlib
+import platform
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -35,6 +51,7 @@ from repro_torch.events import simulator as t_sim
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BILINEAR_ATOL = 1e-4
+BILINEAR_ULPS = 4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,6 +96,14 @@ def _reference(setup, voting: str, quantized: bool):
     return setup["ref"][key]
 
 
+def _within_ulps(got: np.ndarray, want: np.ndarray, ulps: int, what: str) -> None:
+    """Every element within `ulps` float32 ulps of the larger magnitude."""
+    want = want.astype(np.float32)
+    scale = np.spacing(np.maximum(np.abs(got), np.abs(want)))
+    worst = float(np.max(np.abs(got - want) / scale))
+    assert worst <= ulps, f"{what}: {worst} ulps"
+
+
 @pytest.mark.parametrize("formulation", ["kernel", "scatter", "matmul"])
 @pytest.mark.parametrize("voting,quantized", [
     ("nearest", False), ("nearest", True), ("bilinear", False), ("bilinear", True)])
@@ -92,7 +117,7 @@ def test_run_emvs_matches_reference(setup, formulation, voting, quantized):
                       opts, device="cpu")
     assert len(ref.segments) >= 2
     assert [s.frame_range for s in got.segments] == [s.frame_range for s in ref.segments]
-    loose = voting == "bilinear" and not quantized and formulation == "scatter"
+    loose = voting == "bilinear" and not quantized
     for sr, sg in zip(ref.segments, got.segments):
         dsi_r = np.asarray(sr.dsi)
         # the reference keeps float32 for the float kernel path, int32 for
@@ -105,8 +130,13 @@ def test_run_emvs_matches_reference(setup, formulation, voting, quantized):
         depth_r, depth_g = np.asarray(sr.depth_map.depth), sg.depth_map.depth.numpy()
         mask_r, mask_g = np.asarray(sr.depth_map.mask), sg.depth_map.mask.numpy()
         np.testing.assert_array_equal(mask_r, mask_g)
-        if loose:
+        if loose and formulation == "scatter":
             np.testing.assert_allclose(dsi_g, dsi_r.astype(np.float32), atol=BILINEAR_ATOL)
+            np.testing.assert_allclose(depth_g, depth_r, atol=BILINEAR_ATOL)
+        elif loose:
+            _within_ulps(dsi_g, dsi_r, BILINEAR_ULPS, "dsi")
+            _within_ulps(sg.depth_map.confidence.numpy(),
+                         np.asarray(sr.depth_map.confidence), BILINEAR_ULPS, "confidence")
             np.testing.assert_allclose(depth_g, depth_r, atol=BILINEAR_ATOL)
         else:
             np.testing.assert_array_equal(dsi_g, dsi_r.astype(np.float32))
@@ -118,6 +148,45 @@ def test_run_emvs_matches_reference(setup, formulation, voting, quantized):
         assert int(cg.valid.sum()) == int(sg.depth_map.mask.sum())
         np.testing.assert_allclose(cg.points.numpy(), np.asarray(cr.points),
                                    rtol=1e-5, atol=1e-5)
+
+
+# run in a child process kept from fused multiply-adds: a witness that
+# neither package fuses (x * y - z is 0, not the product's rounding
+# error, and PyTorch dispatches its kernels built without FMA), then the
+# parity cases that depend on the host's rounding
+NO_FMA_CHILD = """
+import sys
+import jax
+import numpy as np
+import pytest
+import torch
+x = np.full(8, 1 + 2 ** -12, np.float32)
+print("witness", float(jax.jit(lambda a, b, c: a * b - c)(x, x, x * x)[0]),
+      torch.backends.cpu.get_cpu_capability())
+sys.exit(pytest.main(["-q", "-p", "no:cacheprovider", *sys.argv[1:]]))
+"""
+HOST_ROUNDING_CASES = [
+    "tests/test_torch_pipeline.py::test_run_emvs_matches_reference[bilinear-False-kernel]",
+    "tests/test_torch_pipeline.py::test_run_emvs_matches_reference[bilinear-False-matmul]",
+    "tests/test_torch_offline_helpers.py::test_pose_helpers",
+    "tests/test_torch_lm.py::test_families_match_reference[jamba-1.5-large-398b-float32]",
+]
+
+
+@pytest.mark.skipif(platform.machine().lower() not in ("x86_64", "amd64"),
+                    reason="the flags name x86 instruction sets")
+def test_host_rounding_cases_hold_without_fma():
+    """The host-dependent parity cases (bilinear float voting,
+    `pose_distance`, the hybrid's SSM states) pass with both packages
+    kept from FMA, as on an x86 host without FMA3, as they do here."""
+    env = {**os.environ, "XLA_FLAGS": "--xla_cpu_max_isa=AVX",
+           "ATEN_CPU_CAPABILITY": "default", "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])}
+    run = subprocess.run([sys.executable, "-c", NO_FMA_CHILD, *HOST_ROUNDING_CASES],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert "witness 0.0 DEFAULT" in run.stdout, run.stdout[-2000:] + run.stderr[-2000:]
+    assert run.returncode == 0 and f"{len(HOST_ROUNDING_CASES)} passed" in run.stdout, \
+        run.stdout[-4000:]
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -204,11 +273,13 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 def test_port_imports_neither_jax_nor_the_reference():
+    """Nor ml_dtypes, which the card's machine lacks: bfloat16 crosses
+    through int16 views (checkpoints) or float32 (interop)."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "bench_sweep.py"]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "repro", "benchmarks"), \
+            assert root not in ("jax", "jaxlib", "repro", "benchmarks", "ml_dtypes"), \
                 f"{path} imports {name}"

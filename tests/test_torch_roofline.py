@@ -93,6 +93,20 @@ def test_kernel_bounds():
                                                                abs=1e-4)
 
 
+def test_train_step_bound():
+    """stablelm-3b's step on 8 x 512 tokens: 8·N·T FLOPs with remat at the
+    bf16 peak bind; the optimizer's traffic (bf16 params and grads, float32
+    m and v) is the bytes term."""
+    n = get_config("stablelm-3b").total_params()
+    assert n == 2_795_274_240
+    ms, by = rf.train_step_bound(n, 8 * 512)
+    assert by == "operations" and ms == pytest.approx(1e3 * 8 * n * 4096 / 989e12)
+    assert ms == pytest.approx(92.61, abs=0.01)
+    assert rf.train_step_bound(n, 4096, remat=False)[0] == pytest.approx(0.75 * ms)
+    ms, by = rf.train_step_bound(n, 1)
+    assert by == "bytes" and ms == pytest.approx(1e3 * n * 22 / rf.HBM_BW)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_model_flops_for_cell_equals_reference(arch):
     cfg, jcfg = get_config(arch), j_get_config(arch)
