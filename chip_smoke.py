@@ -192,11 +192,39 @@ Phases, each asserting, none caught:
      checkpoint restored bitwise, the example resumed from it for
      TRAIN_LM_MORE steps, and `repro_torch.examples.serve_lm` with its
      defaults. No kernel runs in a train step; B3 runs in serve_lm's
-     prefills.
+     prefills;
+  12. sharding and parallelism (`repro_torch.distributed.{sharding,
+     expert_parallel,flash_decode,compression}`), after phase 11 has freed
+     its state, over a world-size-1 NCCL group from a FileStore in a
+     temporary directory and a (data=1, model=1) mesh: (a) deepseek-moe-16b
+     at full width, phase 10's random bf16 weights placed by `param_specs`
+     under the reference's serving plan, the largest `lm_prompts` prompt
+     prefilled through ModelCtx(mesh, batch_axes=("data",),
+     ep_shard=EPShard(mesh, dispatch=d)) for d in psum and a2a against the
+     unsharded prefill: psum bitwise, a2a within the MoE rule
+     (MOE_BF16_ULPS, MOE_BF16_REL_L2); flash_attention 28 launches per
+     prefill, all on "tc" (counts zeroed before each, read after); prefill
+     ms in turns; (b) stablelm-3b at full width with phase 11a's options,
+     weights and batches: SHARD_TRAIN_STEPS steps unsharded, then the same
+     from a fresh state placed by `state_specs` through
+     make_train_step(cfg, opts, mesh) under set_sync_debug_mode("error"),
+     every loss within TRAIN_LOSS_ATOL (the log says whether bitwise); step
+     ms in turns; the sharded state saved and restored with `shardings=`
+     bitwise; (c) SeqShard's decode at jamba long_500k's attention shape
+     (q (1, 1, 64, 128) over a bf16 KV of (1, 524288, 8, 128), 400,000
+     valid) against attention_decode within SEQ_DECODE_REL_L2 and, against
+     float64 attention, within SEQ_DECODE_FLOOR_RATIO of attention_decode's
+     own distance; its ms beside the K/V-read bound; (d) compressed_psum
+     over a float32 tree of stablelm-3b's 2.795 B parameter shapes, two
+     steps with error feedback, mean and residual bitwise the round trip,
+     ms beside the 16 B/value bound; (e) the dry run's multi mesh
+     (pod=2, data=16, model=16) on fake CUDA tensors over a fake group of
+     512 ranks for MULTI_CELLS: memory_allocated unmoved, one rank's
+     argument bytes beside the global. Prints the phase's seconds.
 
 At the end it prints, each on a line of its own: one JSON object for the
 kernels (all three; flash_attention's launches count phases 7 and 10's
-serve runs), the card's name and power limit, and last
+serve runs and phase 12a's prefills), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing none of these,
 when there is no CUDA device or the repository's `src/` is not beside it.
 """
@@ -284,6 +312,26 @@ TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL = 2e-4, 1e-3
 # resumed from its checkpoint for TRAIN_LM_MORE
 TRAIN_LM_STEPS, TRAIN_LM_MORE = 20, 10
 TRAIN_LM_RESTARTS = 3  # straggler drains tolerated per train_lm run, each resumed
+# phase 12: sharding and parallelism over a world-size-1 NCCL group and a
+# (data=1, model=1) mesh. 12c: jamba long_500k's attention shape for
+# SeqShard, its decode within SEQ_DECODE_REL_L2 of attention_decode; 12d:
+# compressed_psum over stablelm-3b's parameter shapes in float32
+SEQ_DECODE_HEADS, SEQ_DECODE_KV_HEADS, SEQ_DECODE_DIM = 64, 8, 128
+SEQ_DECODE_LEN, SEQ_DECODE_VALID = 524288, 400000
+# SeqShard against attention_decode, relative L2. Both round their bf16
+# output (2^-9 relative), and SeqShard rounds its unnormalized
+# probabilities to bf16 where attention_decode rounds the normalized ones
+# (the reference's two formulations): on random data, whose flat softmax
+# over 400,000 keys leaves an output of rms ~0.007, they land 3.1e-3 apart
+# (1e-3 would ask more than bf16 holds). Each must also sit as close to
+# float64 attention as the other, within SEQ_DECODE_FLOOR_RATIO
+SEQ_DECODE_REL_L2 = 2 * 2.0 ** -9
+SEQ_DECODE_FLOOR_RATIO = 1.25
+SHARD_TRAIN_STEPS = 3  # steps of 12b from the same start, unsharded then sharded
+SHARD_TURNS = 2  # rounds of (unsharded, sharded, sharded, unsharded) timed
+# 12e: the dry run's multi mesh on fake CUDA tensors over a fake group of 512
+MULTI_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"),
+               ("deepseek-moe-16b", "train_4k"), ("jamba-1.5-large-398b", "long_500k"))
 GRAPH_CALLS = 20  # calls captured in one CUDA graph for a device time
 PROFILER_TRACES = 3  # traces of a profiler cross-check that may return no records
 # launches in one profiled prefill of bucket 512 on an H100, in every trace
@@ -1565,6 +1613,441 @@ def train_examples_phase(card: str) -> None:
         f"phase 11c {time.perf_counter() - t0:.1f} s")
 
 
+def turns(fns: dict, rounds: int = SHARD_TURNS) -> dict:
+    """Each named function timed in turns (a b b a, per round): host clock
+    around one synchronized call; the median ms per name."""
+    import torch
+
+    names = list(fns)
+    times: dict[str, list] = {n: [] for n in names}
+    for _ in range(rounds):
+        for n in names + names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[n]()
+            torch.cuda.synchronize()
+            times[n].append(1e3 * (time.perf_counter() - t0))
+    return {n: statistics.median(v) for n, v in times.items()}
+
+
+def moe_rule(got, want, what: str) -> float:
+    """Phase 10's MoE rule on two outputs: each element within
+    MOE_BF16_ULPS bf16 ulps of its magnitude plus as many of the rms, the
+    relative L2 within MOE_BF16_REL_L2. Returns the relative L2."""
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    diff = (got - want).abs()
+    rms = torch.linalg.vector_norm(want) / want.numel() ** 0.5
+    limit = MOE_BF16_ULPS * (bf16_ulp(want) + bf16_ulp(rms))
+    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    log(f"{what}: max abs {float(diff.max()):.3g}, {float((diff / limit).max()):.3g} of the "
+        f"ulp limit, relative L2 {rel:.3g} (limit {MOE_BF16_REL_L2:g})")
+    assert bool((diff <= limit).all()) and rel <= MOE_BF16_REL_L2, (what, float(diff.max()), rel)
+    return rel
+
+
+def a2a_capacity_cfg(cfg, tokens: int):
+    """`cfg` with the capacity factor at which the single-device MoE keeps
+    the slots the a2a dispatch keeps on one rank: the reference's
+    `_capacity(T) // ep_size + 1` per expert per source rank, one more
+    than the psum path's `_capacity(T)`."""
+    from repro_torch.models.moe import _capacity
+
+    mc = cfg.moe
+    want = _capacity(tokens, mc) + 1
+    cf = (want - 0.5) * mc.num_experts / (tokens * mc.top_k)
+    out = dataclasses.replace(cfg, moe=dataclasses.replace(mc, capacity_factor=cf))
+    assert _capacity(tokens, out.moe) == want, (tokens, want)
+    return out
+
+
+def sharded_prefill_phase(dev, card: str, mesh) -> dict:
+    """Phase 12a: deepseek-moe-16b at full width, phase 10's random bf16
+    weights (seed 0) placed by `param_specs` under the reference's serving
+    plan, the largest `lm_prompts` prompt prefilled through
+    ModelCtx(mesh, batch_axes=("data",), ep_shard=EPShard(mesh, dispatch=d))
+    for d in psum and a2a. psum against the unsharded prefill, bitwise.
+    a2a keeps one more slot per expert (`a2a_capacity_cfg`), so it is held
+    against the single-device formulation at its capacity: one layer on
+    MOE_CHECK_TOKENS bf16 tokens within the MoE rule (its scatter-add
+    reorders the sum), the prefill logits within PREFILL_REL_L2 (bf16: a
+    layer's output rounding the other way in its last bit, amplified
+    through 28 random layers). flash_attention 28 launches per prefill,
+    all on "tc" (counts zeroed before each, read after); prefill ms in
+    turns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.expert_parallel import EPShard
+    from repro_torch.kernels import cuda
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import moe_apply
+
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           dtype=torch.bfloat16, device=dev)
+    weight_bytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    tp = shd.axis_sizes(mesh)["model"]
+    plan = shd.ShardingPlan.for_mesh(mesh, fsdp=weight_bytes / tp > 8e9)
+    placed = shd.distribute(params, shd.param_specs(cfg, params, mesh, plan), mesh)
+    p = max(lm_prompts(cfg.vocab_size), key=len)
+    tokens = torch.from_numpy(p[None].astype(np.int64)).to(dev)
+    torch.cuda.synchronize()
+    log(f"[{card}] phase 12a {cfg.name}: {weight_bytes / 1e9:.2f} GB of bf16 weights placed "
+        f"on the ({', '.join(f'{n}={s}' for n, s in shd.axis_sizes(mesh).items())}) mesh "
+        f"(FSDP {plan.fsdp}), prompt of {tokens.shape[1]} tokens")
+
+    def unsharded(c=cfg):
+        return M.prefill(params, tokens, c, LM_MAX_LEN)[0]
+
+    n_attn = cfg.n_superblocks() * cfg.pattern().count("attn")
+    fns = {"unsharded": unsharded}
+    out = {"launches": {}}
+    for d in ("psum", "a2a"):
+        ctx = M.ModelCtx(mesh=mesh, batch_axes=("data",), ep_shard=EPShard(mesh, dispatch=d))
+
+        def sharded(ctx=ctx):
+            return M.prefill(placed, tokens, cfg, LM_MAX_LEN, ctx=ctx)[0]
+
+        torch.cuda.synchronize()
+        cuda.launch_counts.clear()
+        got = sharded()
+        torch.cuda.synchronize()
+        launches = dict(cuda.launch_counts)
+        assert launches.get("flash_attention", 0) == n_attn, (d, launches)
+        assert launches.get("flash_attention_tc", 0) == n_attn, (d, launches)
+        out["launches"][d] = launches
+        got = got.to_local()
+        assert bool(torch.isfinite(got).all())
+        if d == "psum":
+            want = unsharded()
+            diff = float((got.float() - want.float()).abs().max())
+            log(f"12a EP psum prefill logits vs unsharded: max |diff| {diff:g}")
+            assert got.shape == want.shape and torch.equal(got, want), \
+                "EP psum prefill is not bitwise the unsharded one"
+        else:
+            cfg_a2a = a2a_capacity_cfg(cfg, tokens.shape[1])
+            want = unsharded(cfg_a2a)
+            rel = float(torch.linalg.vector_norm((got - want).float())
+                        / torch.linalg.vector_norm(want.float()))
+            rel_psum = float(torch.linalg.vector_norm((got - unsharded()).float())
+                             / torch.linalg.vector_norm(want.float()))
+            limit = PREFILL_REL_L2["torch.bfloat16"]
+            log(f"12a EP a2a prefill logits vs the unsharded prefill at a2a's capacity "
+                f"({cfg_a2a.moe.capacity_factor:.4f}): relative L2 {rel:.3g} (limit "
+                f"{limit:g}); vs the unsharded prefill at the psum capacity {rel_psum:.3g}")
+            assert got.shape == want.shape and rel <= limit, rel
+            layer = params["blocks"][0]["ffn"]["moe"]
+            x = torch.randn((MOE_CHECK_TOKENS, cfg.d_model), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(2)
+                            ).to(torch.bfloat16)
+            y_a2a, m_a2a = EPShard(mesh, dispatch="a2a").moe(layer, x, cfg)
+            y_ref, m_ref = moe_apply(layer, x, a2a_capacity_cfg(cfg, MOE_CHECK_TOKENS))
+            out["a2a_layer_rel_l2"] = moe_rule(
+                y_a2a, y_ref, f"12a EP a2a layer 0 on {MOE_CHECK_TOKENS} bf16 tokens vs "
+                "moe_apply at a2a's capacity")
+            assert float(m_a2a["moe_drop_frac"]) == float(m_ref["moe_drop_frac"])
+            out["a2a_rel_l2"] = rel
+        log(f"12a EP {d}: flash_attention launched {n_attn} times, all on the tensor-core route")
+        fns[d] = sharded
+    ms = turns(fns)
+    log(f"[{card}] 12a prefill of {tokens.shape[1]} tokens, in turns: unsharded "
+        f"{ms['unsharded']:.2f} ms, EP psum {ms['psum']:.2f} ms "
+        f"({ms['psum'] / ms['unsharded']:.3f}x), EP a2a {ms['a2a']:.2f} ms "
+        f"({ms['a2a'] / ms['unsharded']:.3f}x); phase 12a {time.perf_counter() - t0:.1f} s")
+    out["prefill_ms"] = ms
+    return out
+
+
+def sharded_train_phase(dev, card: str, mesh, before_checkpoint=None) -> dict:
+    """Phase 12b: stablelm-3b at full width with phase 11a's options,
+    weights (seed 0) and TokenStream batches: SHARD_TRAIN_STEPS unsharded
+    steps, then the same from a fresh state placed by `state_specs` through
+    make_train_step(cfg, opts, mesh) under set_sync_debug_mode("error"):
+    every loss within TRAIN_LOSS_ATOL (bitwise expected); step ms in turns
+    (the placed state shares the plain one's storage on one rank); the
+    sharded state saved and restored with `shardings=` bitwise.
+    `before_checkpoint` is called before the save (the checkpoint's disk
+    time hosts 12e's traces)."""
+    import tempfile
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import DataConfig, TokenStream
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (TrainOptions, init_train_state, make_train_step,
+                                                 place_state, state_specs)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    n_steps = TRAIN_WARM_STEPS + TRAIN_TIMED_STEPS
+    opts = TrainOptions(microbatches=TRAIN_MICROBATCHES, remat=True, param_dtype=torch.bfloat16,
+                        opt=AdamWConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARM_STEPS,
+                                        total_steps=n_steps))
+    data = TokenStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batches = staged_batches(data, 0, SHARD_TRAIN_STEPS + 4 * SHARD_TURNS, dev)
+
+    def fresh():
+        return init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, opts,
+                                device=dev)
+
+    state = fresh()
+    plain_step = make_train_step(cfg, opts)
+    losses_u = []
+    for b in batches[:SHARD_TRAIN_STEPS]:
+        state, m = plain_step(state, b)
+        losses_u.append(float(m["loss"]))
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = fresh()
+    plan = shd.ShardingPlan.for_mesh(mesh)
+    specs = state_specs(cfg, state, mesh, plan)
+    placed = place_state(state, specs, mesh)
+    step = make_train_step(cfg, opts, mesh)
+    losses_s = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches[:SHARD_TRAIN_STEPS]:
+            placed, m = step(placed, b)
+            losses_s.append(m["loss"].to_local())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses_s = [float(x) for x in losses_s]
+    gaps = [abs(a - b) for a, b in zip(losses_s, losses_u)]
+    log(f"12b {cfg.name} losses, unsharded {losses_u}, sharded {losses_s}: "
+        + ("bitwise equal" if losses_s == losses_u else f"max gap {max(gaps):g}")
+        + f" (limit {TRAIN_LOSS_ATOL:g}); the sharded steps ran under "
+        "set_sync_debug_mode('error')")
+    assert max(gaps) <= TRAIN_LOSS_ATOL, (losses_u, losses_s)
+    shares = all(a.to_local().data_ptr() == b.data_ptr() for a, b in
+                 zip(pytree.tree_leaves(placed.params), pytree.tree_leaves(state.params)))
+    assert shares, "the placed state does not share the plain state's storage"
+    rest = iter(batches[SHARD_TRAIN_STEPS:])
+    ms = turns({"unsharded": lambda: plain_step(state, next(rest)),
+                "sharded": lambda: step(placed, next(rest))})
+    log(f"[{card}] 12b {cfg.name} train step ({TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"{TRAIN_MICROBATCHES} microbatches), in turns: unsharded {ms['unsharded']:.2f} ms, "
+        f"sharded {ms['sharded']:.2f} ms ({ms['sharded'] / ms['unsharded']:.3f}x)")
+    out = {"losses": losses_s, "step_ms": ms}
+    if before_checkpoint is not None:
+        before_checkpoint()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, 1, placed, cfg)
+        t_save = time.perf_counter() - t0
+        back = ckpt.restore(d, 1, placed, cfg, shardings=shd.tree_shardings(specs, mesh))
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0 - t_save
+    for a, b in zip(pytree.tree_leaves(back), pytree.tree_leaves(placed)):
+        if hasattr(b, "placements"):
+            assert a.placements == b.placements and a.dtype == b.dtype
+            assert torch.equal(a.to_local(), b.to_local()), "restore is not bitwise"
+        else:
+            assert int(a) == int(b)
+    state_gb = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(state)) / 1e9
+    log(f"[{card}] 12b checkpoint of the sharded state ({state_gb:.2f} GB): save "
+        f"{t_save:.1f} s, restore onto the mesh with shardings= {t_restore:.1f} s, "
+        f"bitwise; phase 12b {time.perf_counter() - t_phase:.1f} s")
+    return {**out, "save_s": t_save, "restore_s": t_restore}
+
+
+def seq_decode_phase(dev, card: str, mesh) -> dict:
+    """Phase 12c: SeqShard's decode at jamba long_500k's attention shape,
+    q (1, 1, 64, 128) over a bf16 KV of (1, 524288, 8, 128) with 400,000
+    valid entries, against attention_decode (relative L2) and both against
+    float64 attention, and its time (CUDA events around eager calls)
+    beside the bound: K and V read once."""
+    import torch
+
+    from repro_torch.distributed.flash_decode import SeqShard
+    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.models.attention import attention_decode
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = (1, SEQ_DECODE_LEN, SEQ_DECODE_KV_HEADS, SEQ_DECODE_DIM)
+    q = torch.randn((1, 1, SEQ_DECODE_HEADS, SEQ_DECODE_DIM), generator=g, device=dev
+                    ).to(torch.bfloat16)
+    k = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    seq = SeqShard(mesh)
+    got = seq.decode_attention(q, k, v, SEQ_DECODE_VALID)
+    want = attention_decode(q, k, v, SEQ_DECODE_VALID)
+    g_q = SEQ_DECODE_HEADS // SEQ_DECODE_KV_HEADS
+    qh = q[:, 0].double().reshape(1, SEQ_DECODE_KV_HEADS, g_q, SEQ_DECODE_DIM)
+    scores = torch.matmul(qh, k[:, :SEQ_DECODE_VALID].double().permute(0, 2, 3, 1))
+    exact = torch.matmul(torch.softmax(scores / SEQ_DECODE_DIM ** 0.5, dim=-1),
+                         v[:, :SEQ_DECODE_VALID].double().transpose(1, 2)).reshape(want.shape)
+    del scores
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.double() - b) / torch.linalg.vector_norm(b))
+
+    gap, to_exact, floor = rel(got, want.double()), rel(got, exact), rel(want, exact)
+    kv_bytes = 2 * k.numel() * k.element_size()
+    bound = kv_bytes / HBM_BW * 1e3
+    ms = cuda_ms(lambda: seq.decode_attention(q, k, v, SEQ_DECODE_VALID), reps=5, inner=3)
+    plain = cuda_ms(lambda: attention_decode(q, k, v, SEQ_DECODE_VALID), reps=5, inner=3)
+    log(f"[{card}] 12c SeqShard decode, q (1, 1, 64, 128) over bf16 KV (1, 524288, 8, 128), "
+        f"{SEQ_DECODE_VALID} valid: relative L2 {gap:.3g} against attention_decode (limit "
+        f"{SEQ_DECODE_REL_L2:.3g}); against float64 attention {to_exact:.3g}, attention_decode "
+        f"{floor:.3g} (ratio {to_exact / floor:.3f}, limit {SEQ_DECODE_FLOOR_RATIO}); "
+        f"{ms:.3f} ms (CUDA events, eager), attention_decode {plain:.3f} ms; bound "
+        f"{bound:.3f} ms ({kv_bytes / 1e9:.3f} GB of K and V at {HBM_BW / 1e12:.2f} TB/s), "
+        f"bound share {bound / ms:.3f}")
+    assert got.shape == want.shape and gap <= SEQ_DECODE_REL_L2, gap
+    assert to_exact <= SEQ_DECODE_FLOOR_RATIO * floor, (to_exact, floor)
+    return {"rel_l2": gap, "rel_l2_exact": to_exact, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound}
+
+
+def compression_phase(dev, card: str) -> dict:
+    """Phase 12d: compressed_psum over a float32 tree of stablelm-3b's
+    parameter shapes (random, seed 0) with a zero residual, then a second
+    step carrying that residual: the mean bitwise compress_decompress(g + r)
+    and the new residual (g + r) - sent bitwise; its time beside the bound
+    (g and r read, the mean and the residual written: 16 B a value)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as C
+    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    shapes = pytree.tree_map(lambda t: tuple(t.shape), M.init_params(
+        cfg, generator=None, dtype=torch.float32, device="meta"))
+    g = torch.Generator(device=dev).manual_seed(0)
+    grads = pytree.tree_map(lambda s: torch.randn(s, generator=g, device=dev), shapes,
+                            is_leaf=lambda x: isinstance(x, tuple))
+    n = sum(t.numel() for t in pytree.tree_leaves(grads))
+    state = C.init_state(grads)
+    for step in range(2):
+        mean, new = C.compressed_psum(grads, state)
+        for gl, rl, ml, nl in zip(pytree.tree_leaves(grads), pytree.tree_leaves(state.residual),
+                                  pytree.tree_leaves(mean), pytree.tree_leaves(new.residual)):
+            gf = gl + rl
+            sent = C.compress_decompress(gf)
+            assert torch.equal(ml, sent), "compressed_psum's mean is not the round trip"
+            assert torch.equal(nl, gf - sent), "the new residual is not (g + r) - sent"
+        del mean
+        state = new
+    torch.cuda.synchronize()
+    bound = 16 * n / HBM_BW * 1e3
+    ms = cuda_ms(lambda: C.compressed_psum(grads, state), reps=3, inner=1)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"[{card}] 12d compressed_psum over {n / 1e9:.3f} B float32 values ({cfg.name}'s "
+        f"{len(pytree.tree_leaves(grads))} parameter shapes): mean and residual bitwise the "
+        f"round trip, two steps; {ms:.2f} ms (CUDA events, eager) against a {bound:.2f} ms "
+        f"bound ({16 * n / 1e9:.1f} GB at {HBM_BW / 1e12:.2f} TB/s), bound share "
+        f"{bound / ms:.3f}; peak memory {peak:.1f} GB; phase 12d "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"ms": ms, "bound_ms": bound, "values": n}
+
+
+def multi_dry_cell(arch: str, cell: str) -> int:
+    """One 12e cell (`python3 chip_smoke.py --multi-dry-cell ARCH CELL`):
+    the dry run's multi mesh on fake CUDA tensors over a fake group of 512
+    ranks; nothing allocated on the card; the record as the last line."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    before = torch.cuda.memory_allocated()
+    rec = dryrun.run_cell(arch, cell, "multi", device="cuda")
+    assert "skipped" not in rec, rec
+    assert torch.cuda.memory_allocated() == before, "the multi dry run allocated"
+    print(json.dumps(rec, default=str))
+    return 0
+
+
+def start_multi_dryruns() -> list:
+    """12e's cells, each in a process of its own, all started together."""
+    return [(arch, cell, time.perf_counter(), subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multi-dry-cell", arch, cell],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for arch, cell in MULTI_CELLS]
+
+
+def finish_multi_dryruns(card: str, procs: list) -> list:
+    """Wait for 12e's processes (killing the rest if one fails) and log
+    each record: one rank's argument bytes beside the global."""
+    recs = []
+    try:
+        for arch, cell, t0, proc in procs:
+            out, err = proc.communicate(timeout=900)
+            assert proc.returncode == 0, f"12e {arch} {cell} failed:\n{err[-4000:]}"
+            rec = json.loads(out.strip().splitlines()[-1])
+            mem = rec["memory"]
+            log(f"12e dry run {arch} {cell} on the multi mesh ({rec['devices']} ranks, fake "
+                f"CUDA tensors, memory_allocated unmoved): done {time.perf_counter() - t0:.1f} s "
+                f"after its start, traced in {rec['trace_s']} s; argument bytes "
+                f"{mem['argument_bytes'] / 1e9:.3f} GB a rank of "
+                f"{mem['argument_bytes_global'] / 1e9:.1f} GB in all, peak temporary "
+                f"{mem['peak_temp_bytes'] / 1e9:.2f} GB a rank; "
+                f"{rec['roofline']['flops']:.3g} FLOPs a rank; collectives "
+                f"{rec['roofline']['collectives']['counts']}"
+                + (f"; {rec['microbatches']} microbatches" if rec.get("microbatches") else ""))
+            recs.append(rec)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return recs
+
+
+def mesh_phase(dev, card: str) -> dict:
+    """Phase 12 (see the module docstring): 12a-12d over a world-size-1
+    NCCL group and a (data=1, model=1) mesh; 12e's cells, each over a fake
+    group in a process of its own, run during 12b's checkpoint and 12c-12d
+    (their own clocks are the host's; 12c and 12d time the card)."""
+    import torch
+
+    from repro_torch.distributed.emvs import local_process_group
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    out = {}
+    torch.cuda.set_device(dev.index or 0)
+    with local_process_group("cuda"):
+        mesh = make_host_mesh(1, 1)
+        out["12a"] = sharded_prefill_phase(dev, card, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        procs = []
+        try:
+            out["12b"] = sharded_train_phase(
+                dev, card, mesh, before_checkpoint=lambda: procs.extend(start_multi_dryruns()))
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["12c"] = seq_decode_phase(dev, card, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            out["12d"] = compression_phase(dev, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+        except BaseException:
+            for *_, proc in procs:
+                proc.kill()
+                proc.wait()
+            raise
+    out["12e"] = finish_multi_dryruns(card, procs)
+    log(f"[{card}] phase 12: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def emvs_config():
     """The EMVS main path's camera (DAVIS240), DSI (128 planes over
     0.6-4.5 m), options (fused kernel, nearest, Table-1 quantized) and scene."""
@@ -2369,6 +2852,9 @@ def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 4 and sys.argv[1] == "--multi-dry-cell" and torch.cuda.is_available():
+        sys.path.insert(0, SRC)
+        return multi_dry_cell(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2574,8 +3060,14 @@ def main() -> int:
     train_examples_phase(card)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s; {TRAIN_ARCH} step "
         f"{trained['step_ms']:.2f} ms against a {trained['bound_ms']:.2f} ms bound")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 12. sharding and parallelism
+    meshed = mesh_phase(dev, card)
     b3_serve = {LM_ARCH: lm["launches"]}
     b3_serve.update({arch: run["launches"] for arch, run in served.items()})
+    b3_serve.update({f"{MOE_ARCH} EP {d}": c
+                     for d, c in meshed["12a"]["launches"].items()})
     log(f"whole script {time.perf_counter() - t_start:.1f} s")
 
     kernels = [

@@ -14,9 +14,13 @@ format, so a checkpoint crosses packages both ways:
   cleanup (`keep_last`).
 
 Trees are nested dicts, lists, tuples and NamedTuples of tensors or numpy
-arrays. Restoring onto another mesh (`shardings=`) is the sharded half and
-waits for ROADMAP A7b. Preemption drain, elastic re-meshing and the
-straggler watchdog are the reference's, copied.
+arrays. A tree of DTensors (a sharded state) is saved as full arrays:
+every rank gathers each leaf (`full_tensor`), rank 0 writes, and a
+barrier follows. `restore_checkpoint(shardings=)` is the elastic path:
+every rank reads the full arrays and keeps its own shard of each, on the
+mesh of the given shardings, which may differ from the mesh that saved.
+Preemption drain, elastic re-meshing and the straggler watchdog are the
+reference's, copied.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ from typing import Any, Iterable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 MANIFEST = "manifest.json"
 
@@ -72,7 +78,10 @@ def _rebuild(tree: Any, leaves: Iterator) -> Any:
 
 
 def _host_array(leaf) -> tuple[np.ndarray, str]:
-    """(the array to store, the leaf's true dtype name)."""
+    """(the array to store, the leaf's true dtype name). A DTensor is
+    gathered whole (a collective: every rank of its mesh calls this)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:  # store the raw bits
@@ -87,16 +96,22 @@ def _host_array(leaf) -> tuple[np.ndarray, str]:
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
                     extra: dict | None = None, keep_last: int = 3) -> str:
-    """Atomic rolling checkpoint. Returns the final step directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomic rolling checkpoint. Returns the final step directory. With
+    DTensor leaves every rank calls it: each gathers, rank 0 writes."""
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    leaves = list(_leaves_with_paths(tree))
+    sharded = any(isinstance(leaf, DTensor) for _, leaf in leaves)
+    flat, true_dtypes = {}, {}
+    for key, leaf in leaves:
+        flat[key], true_dtypes[key] = _host_array(leaf)
+    if sharded and dist.get_rank() != 0:
+        dist.barrier()
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat, true_dtypes = {}, {}
-    for key, leaf in _leaves_with_paths(tree):
-        flat[key], true_dtypes[key] = _host_array(leaf)
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     manifest = {
         "step": step,
@@ -115,6 +130,8 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
     steps = sorted(all_steps(ckpt_dir))
     for s in steps[:-keep_last]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:010d}"), ignore_errors=True)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -139,10 +156,13 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
     """Restore into the structure of `like` (tensors or numpy arrays, whose
     shapes must match; meta tensors give shapes only): each leaf a tensor
     of the stored dtype, on the device of `like`'s leaf when that is a
-    tensor off the meta device, else on the CPU."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh (shardings=) is not ported yet: ROADMAP A7b")
+    tensor off the meta device, else on the CPU.
+
+    `shardings`: a matching tree of `sharding.NamedSharding`s — the
+    elastic path: each leaf becomes a DTensor on that sharding's mesh,
+    which may differ from the mesh that saved."""
+    shard_leaves = ([s for _, s in _leaves_with_paths(shardings)]
+                    if shardings is not None else None)
     d = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(d, MANIFEST)) as f:
         manifest = json.load(f)
@@ -157,6 +177,9 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
                 t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(arr))
+            if shard_leaves is not None:
+                leaves.append(shard_leaves[len(leaves)].place(t))
+                continue
             on = isinstance(leaf, torch.Tensor) and leaf.device.type != "meta"
             leaves.append(t.to(leaf.device) if on else t)
     return _rebuild(like, iter(leaves))

@@ -5,25 +5,40 @@ memory, FLOPs, bytes and roofline, without allocating or launching.
     python -m repro_torch.launch.dryrun --all [--mesh both] [--out results/dryrun_torch]
 
 Counterpart of `repro.launch.dryrun`, which lowers and compiles each cell
-for a 256- or 512-chip TPU mesh. The port's "single" mesh is one card:
-the step is traced on fake tensors of the chosen device (`FakeTensorMode`;
-the card unless `--device cpu`) under `launch/graph_analysis.py`, whose
-counts feed `launch/roofline.py`. On the card the step reaches the
-hand-written kernels as one operation each (their fake implementations),
-on the CPU their plain versions. The record keeps the reference's keys:
-arch, cell, mesh, devices, memory (argument, output and peak temporary
-bytes), roofline and, for EMVS, `emvs_votes`; `trace_s` takes the place
-of the lowering and compile times, and `kernels` lists each hand-written
-kernel's call with its declared bytes and FLOPs.
+for a 256- or 512-chip TPU mesh. The step is traced on fake tensors of
+the chosen device (`FakeTensorMode`; the card unless `--device cpu`)
+under `launch/graph_analysis.py`, whose counts feed `launch/roofline.py`.
+On the card the step reaches the hand-written kernels as one operation
+each (their fake implementations), on the CPU their plain versions.
+
+Meshes: "single" is one card, and its train cells trace the unsharded
+`make_train_step`. "multi" is the reference's (pod=2, data=16, model=16)
+over a fake process group of 512 ranks (`torch.testing._internal.
+distributed.fake_pg`; the trace runs as rank 0 and no collective moves
+data): parameters and inputs are DTensors placed by the reference's
+serving policy (FSDP only where the model-parallel copy passes 8 GB; EP
+where the experts divide `model`; `SeqShard` for the hybrid `long_500k`;
+`--opts pad_heads` pads heads to `model`), and train cells trace
+`training.train_step.lower_train_step` with the reference's microbatch
+choice. DTensor runs each operation on rank 0's shards, so a record's
+FLOPs, bytes and memory are one rank's; `devices` is 512 and
+`memory.argument_bytes_global` holds the unsharded argument bytes.
+
+The record keeps the reference's keys: arch, cell, mesh, devices, memory
+(argument, output and peak temporary bytes), roofline and, for EMVS,
+`emvs_votes`; `trace_s` takes the place of the lowering and compile
+times, and `kernels` lists each hand-written kernel's call with its
+declared bytes and FLOPs.
 
 Cells: `eventor-davis240` runs `emvs_rt` and `emvs_seg` through the
-batched sweep (the main path's options, 256 planes); every LM arch runs
-`prefill_32k` and `decode_32k`, and the SSM and hybrid archs `long_500k`
-(a decode step at 524,288 tokens of context). Every other cell is
-skipped with its reason: the reference's own skip rule, or what the port
-has not got yet (the training step, the multi-card mesh; ROADMAP A7). A
-cell whose step reaches an operation that fake tensors cannot run (no
-meta kernel) is recorded as skipped, naming the operation.
+batched sweep (the main path's options, 256 planes) on the single mesh
+(the reference's EMVS mesh program is `distributed.emvs.make_emvs_step`,
+which the port's dry run does not trace on the fake group); every LM
+arch runs `train_4k`, `prefill_32k` and `decode_32k`, and the SSM and
+hybrid archs `long_500k` (a decode step at 524,288 tokens of context).
+Skipped cells carry the reference's own skip reason. A cell whose step
+reaches an operation that fake tensors cannot run (no meta kernel) is
+recorded as skipped, naming the operation.
 
 `--all` writes one JSON per cell into `--out`, tracing each cell in a
 subprocess of its own (a skipped cell's record is written directly).
@@ -31,14 +46,18 @@ subprocess of its own (a skipped cell's record is written directly).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 from torch._subclasses.fake_tensor import UnsupportedOperatorException
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import ArchConfig, get_config
 from repro_torch.configs.shapes import (
@@ -50,8 +69,10 @@ from repro_torch.configs.shapes import (
     input_specs,
 )
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch import graph_analysis as ga
 from repro_torch.launch import roofline as rf
+from repro_torch.launch.mesh import make_production_mesh
 
 ARCHS = [
     "kimi-k2-1t-a32b", "deepseek-moe-16b", "musicgen-large", "stablelm-3b",
@@ -62,19 +83,60 @@ MESHES = ("single", "multi")
 DEFAULT_OUT = "results/dryrun_torch"
 
 
-def port_skip(cell: ShapeCell, mesh_kind: str) -> str | None:
-    """Why the port cannot trace this cell yet, or None."""
-    if mesh_kind == "multi":
-        return ("multi-card mesh not ported yet: ROADMAP A7 "
-                "(distributed/sharding.py)")
-    if cell.kind == "train":
-        return ("sharded train step (`lower_train_step` over a mesh) not ported "
-                "yet: ROADMAP A7b")
+MAX_TOKENS_PER_DEV_MB = 16384  # microbatch sizing target (activation memory)
+MULTI_RANKS = 512
+
+
+def port_skip(cfg: ArchConfig, cell: ShapeCell, mesh_kind: str) -> str | None:
+    """Why the port cannot trace this cell, or None: the EMVS cells on the
+    multi mesh (the reference's mesh program there is `make_emvs_step`)."""
+    if mesh_kind == "multi" and cfg.family == "emvs":
+        return ("the EMVS mesh step (`distributed.emvs.make_emvs_step`) is not "
+                "traced on the fake 512-rank group")
     return None
 
 
-def _tree_bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in ga.tensors_of(tree))
+def _pick_microbatches(cell: ShapeCell, batch_shards: int) -> int:
+    tokens_per_dev = cell.global_batch * cell.seq_len // batch_shards
+    mb = 1
+    while (tokens_per_dev // mb > MAX_TOKENS_PER_DEV_MB
+           and (cell.global_batch // (mb * 2)) % batch_shards == 0
+           and cell.global_batch // (mb * 2) >= batch_shards):
+        mb *= 2
+    return mb
+
+
+def _batch_shards(mesh) -> int:
+    sizes = shd.axis_sizes(mesh)
+    return math.prod(sizes.get(a, 1) for a in ("pod", "data"))
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _tree_bytes(tree, local: bool = True) -> int:
+    """Bytes of a tree's tensors: one rank's shards, or with `local=False`
+    the whole (unsharded) tensors."""
+    return sum(t.numel() * t.element_size() if not local else
+               _local(t).numel() * _local(t).element_size() for t in ga.tensors_of(tree))
+
+
+@contextlib.contextmanager
+def fake_process_group(world: int = MULTI_RANKS):
+    """A fake default process group of `world` ranks (this process is rank
+    0; collectives move nothing), destroyed on exit. An initialized group
+    is used as it is."""
+    if dist.is_initialized():
+        yield
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _emvs_step(cell: ShapeCell, dev: torch.device, fake):
@@ -106,10 +168,24 @@ def _emvs_step(cell: ShapeCell, dev: torch.device, fake):
     return step, (batch,), {"emvs_votes": n_votes, "model_flops": 5.0 * n_votes}
 
 
+def _train_step(cfg: ArchConfig, cell: ShapeCell, dev: torch.device, fake):
+    """The unsharded train step of the cell's global batch, and its inputs."""
+    from repro_torch.training.train_step import TrainOptions, init_train_state, make_train_step
+
+    opts = TrainOptions(microbatches=_pick_microbatches(cell, 1), remat=True)
+    specs = input_specs(cfg, cell, device=dev, fake_mode=fake)
+    with fake:
+        state = init_train_state(None, cfg, opts, device=dev)
+    step = make_train_step(cfg, opts)
+    return step, (state, specs), {"microbatches": opts.microbatches}
+
+
 def _lm_step(cfg: ArchConfig, cell: ShapeCell, dev: torch.device, fake):
     """Prefill or one decode step of the cell's batch, and its inputs."""
     from repro_torch.models import model as M
 
+    if cell.kind == "train":
+        return _train_step(cfg, cell, dev, fake)
     specs = input_specs(cfg, cell, device=dev, fake_mode=fake)
     with fake:
         params = M.init_params(cfg, generator=None, dtype=torch.bfloat16, device=dev)
@@ -131,48 +207,129 @@ def _lm_step(cfg: ArchConfig, cell: ShapeCell, dev: torch.device, fake):
     return step, (params, state, specs["tokens"], front), {}
 
 
+def _multi_trace(cfg: ArchConfig, cell: ShapeCell, mesh, dev: torch.device, fake,
+                 opt_flags: frozenset):
+    """The reference's `lower_cell` on the multi mesh: the cell's step over
+    DTensors placed by its policy, traced; returns (`analyze`'s result,
+    the step's arguments, extra record entries)."""
+    from repro_torch.distributed.expert_parallel import EPShard
+    from repro_torch.distributed.flash_decode import SeqShard
+    from repro_torch.models import model as M
+
+    if "pad_heads" in opt_flags and cfg.n_heads:
+        cfg = cfg.pad_heads_to(shd.axis_sizes(mesh).get("model", 1))
+    specs = input_specs(cfg, cell, device=dev, fake_mode=fake)
+    plan = shd.ShardingPlan.for_mesh(mesh)
+    if cell.kind == "train":
+        from repro_torch.training.train_step import TrainOptions, lower_train_step
+
+        mb = _pick_microbatches(cell, _batch_shards(mesh))
+        opts = TrainOptions(
+            microbatches=mb, remat=True,
+            grad_acc_sharded="grad_acc_spec" in opt_flags,
+            moe_combine_bf16="bf16_combine" in opt_flags,
+            ep_dispatch="a2a" if "ep_a2a" in opt_flags else "psum",
+            ep_zero3="ep_zero3" in opt_flags,
+            seq_parallel="seq_parallel" in opt_flags)
+        (out, stats, mode), state = lower_train_step(cfg, opts, mesh, plan, specs,
+                                                     fake=fake, device=dev)
+        return (out, stats, mode), (state, specs), {"microbatches": mb}
+
+    # Serving sharding policy: replicate params over `data` (no FSDP) when
+    # the TP-sharded copy fits comfortably in HBM; FSDP only when a replica
+    # cannot fit (kimi-1t, jamba-398b).
+    with fake:
+        params = M.init_params(cfg, generator=None, dtype=torch.bfloat16, device=dev)
+    tp = shd.axis_sizes(mesh).get("model", 1)
+    serve_fsdp = _tree_bytes(params) / tp > 8e9
+    plan = shd.ShardingPlan.for_mesh(mesh, fsdp=serve_fsdp)
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    act_batch_axes = batch_axes if cell.global_batch % _batch_shards(mesh) == 0 else ()
+    ep = None
+    if cfg.moe is not None and cfg.moe.num_experts % tp == 0 and act_batch_axes:
+        ep = EPShard(mesh, token_axes=act_batch_axes)
+    seq = (SeqShard(mesh) if cell.name == "long_500k" and cfg.family == "hybrid" else None)
+    ctx = M.ModelCtx(mesh=mesh, batch_axes=act_batch_axes, ep_shard=ep, seq_shard=seq)
+    with fake:
+        params = shd.distribute(params, shd.param_specs(cfg, params, mesh, plan), mesh)
+        inputs = {k: shd.constrain(v, mesh, shd.batch_spec(tuple(v.shape), mesh, plan))
+                  for k, v in specs.items()}
+    front = inputs.get("frontend_embed")
+    if cell.kind == "prefill":
+        def step(params, tokens, front):
+            logits, _ = M.prefill(params, tokens, cfg, cell.seq_len, frontend_embed=front,
+                                  ctx=ctx)
+            return logits
+
+        args = (params, inputs["tokens"], front)
+        return ga.analyze(step, *args, fake=fake), args, {}
+    with fake:
+        state = M.init_decode_state(cfg, cell.global_batch, cell.seq_len, ctx=ctx, device=dev)
+        state = shd.distribute(state, shd.decode_state_specs(cfg, state, mesh, plan), mesh)
+
+    def step(params, state, tokens, front):
+        logits, _ = M.decode_step(params, state, tokens, cell.seq_len - 1, cfg,
+                                  frontend_embed=front, ctx=ctx)
+        return logits
+
+    args = (params, state, inputs["tokens"], front)
+    return ga.analyze(step, *args, fake=fake), args, {}
+
+
 def run_cell(arch: str, cell_name: str, mesh_kind: str = "single", *,
-             device=None) -> dict:
+             device=None, opt_flags: frozenset = frozenset()) -> dict:
     """Trace one cell on fake tensors of `device` (the card unless "cpu")
     and return its record (see the module docstring)."""
     cfg = get_config(arch)
     table = EMVS_CELLS if cfg.family == "emvs" else LM_CELLS
     cell = table[cell_name]
     rec: dict = {"arch": arch, "cell": cell_name, "mesh": mesh_kind}
-    skip = cell_skipped(cfg, cell) or port_skip(cell, mesh_kind)
+    if mesh_kind == "multi":
+        rec["opts"] = sorted(opt_flags)
+    skip = cell_skipped(cfg, cell) or port_skip(cfg, cell, mesh_kind)
     if skip:
         rec["skipped"] = skip
         return rec
     dev = resolve_device(device)
-    fake = ga.fake_mode()
-    t0 = time.time()
-    if cfg.family == "emvs":
-        step, args, extra = _emvs_step(cell, dev, fake)
-    else:
-        step, args, extra = _lm_step(cfg, cell, dev, fake)
-    try:
-        out, stats, mode = ga.analyze(step, *args, fake=fake)
-    except UnsupportedOperatorException as exc:
-        rec["skipped"] = (f"fake tensors cannot trace {exc.func}: the operation "
-                          "has no meta kernel")
-        return rec
-    t1 = time.time()
-    mf = extra.pop("model_flops", None)
-    if mf is None:
-        mf = rf.model_flops_for_cell(cfg, cell)
-    roof = rf.analyze(stats, n_devices=1, model_flops_global=mf)
-    rec.update({
-        "devices": 1,
-        "device": dev.type,
-        "trace_s": round(t1 - t0, 2),
-        "memory": {"argument_bytes": _tree_bytes(args), "output_bytes": _tree_bytes(out),
-                   "peak_temp_bytes": stats.peak_temp_bytes},
-        "roofline": roof.to_json(),
-        "kernels": [{"op": o.name, "bytes": o.bytes_read + o.bytes_written,
-                     "flops": o.flops, "outputs": o.outputs}
-                    for o in mode.ops if o.name.startswith("repro_torch.")],
-        **extra,
-    })
+    with (fake_process_group() if mesh_kind == "multi" else contextlib.nullcontext()):
+        fake = ga.fake_mode()
+        t0 = time.time()
+        try:
+            if mesh_kind == "multi":
+                mesh = make_production_mesh(multi_pod=True, device_type=dev.type)
+                (out, stats, mode), args, extra = _multi_trace(cfg, cell, mesh, dev, fake,
+                                                               opt_flags)
+            else:
+                step, args, extra = (_emvs_step(cell, dev, fake) if cfg.family == "emvs"
+                                     else _lm_step(cfg, cell, dev, fake))
+                out, stats, mode = ga.analyze(step, *args, fake=fake)
+        except UnsupportedOperatorException as exc:
+            rec["skipped"] = (f"fake tensors cannot trace {exc.func}: the operation "
+                              "has no meta kernel")
+            return rec
+        except shd.StackedDimSharding as exc:
+            rec["skipped"] = f"{exc} (ROADMAP C5)"
+            return rec
+        n_dev = MULTI_RANKS if mesh_kind == "multi" else 1
+        t1 = time.time()
+        mf = extra.pop("model_flops", None)
+        if mf is None:
+            mf = rf.model_flops_for_cell(cfg, cell)
+        roof = rf.analyze(stats, n_devices=n_dev, model_flops_global=mf)
+        rec.update({
+            "devices": n_dev,
+            "device": dev.type,
+            "trace_s": round(t1 - t0, 2),
+            "memory": {"argument_bytes": _tree_bytes(args),
+                       "argument_bytes_global": _tree_bytes(args, local=False),
+                       "output_bytes": _tree_bytes(out),
+                       "peak_temp_bytes": stats.peak_temp_bytes},
+            "roofline": roof.to_json(),
+            "kernels": [{"op": o.name, "bytes": o.bytes_read + o.bytes_written,
+                         "flops": o.flops, "outputs": o.outputs}
+                        for o in mode.ops if o.name.startswith("repro_torch.")],
+            **extra,
+        })
     return rec
 
 
@@ -185,6 +342,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--json", help="write the single cell's record here")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument("--opts", default="", help="comma-separated options of the multi mesh: "
+                    "pad_heads,grad_acc_spec,bf16_combine,ep_a2a,ep_zero3,seq_parallel")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -202,7 +361,7 @@ def main(argv=None) -> int:
                         print(f"[skip-cached] {tag}")
                         continue
                     skip = (cell_skipped(cfg, table[cell_name])
-                            or port_skip(table[cell_name], mk))
+                            or port_skip(cfg, table[cell_name], mk))
                     if skip:  # no trace to isolate: the record, in process
                         with open(out_json, "w") as f:
                             json.dump({"arch": arch, "cell": cell_name, "mesh": mk,
@@ -214,6 +373,8 @@ def main(argv=None) -> int:
                            "--json", out_json]
                     if args.device:
                         cmd += ["--device", args.device]
+                    if args.opts:
+                        cmd += ["--opts", args.opts]
                     print(f"[run] {tag}", flush=True)
                     r = subprocess.run(cmd, capture_output=True, text=True, timeout=3600)
                     if r.returncode != 0:
@@ -224,7 +385,8 @@ def main(argv=None) -> int:
         print(f"done; {failures} failures")
         return 1 if failures else 0
 
-    rec = run_cell(args.arch, args.cell, args.mesh, device=args.device)
+    rec = run_cell(args.arch, args.cell, args.mesh, device=args.device,
+                   opt_flags=frozenset(x for x in args.opts.split(",") if x))
     out = json.dumps(rec, indent=1, default=str)
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)

@@ -41,6 +41,7 @@ from collections import defaultdict
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -152,6 +153,36 @@ class GraphAnalysisMode(TorchDispatchMode):
         self._n_mat = 0
         self._live = 0
         self.peak_temp_bytes = 0
+        self._paused = 0
+
+    # DTensor infers each output's global shape by running the operation
+    # on global-shape fake tensors (`ShardingPropagator.
+    # _propagate_tensor_meta_non_cached`); that is no work of the program,
+    # so the mode stands aside while it runs
+    def __enter__(self):
+        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+        name = next(n for n in ("_propagate_tensor_meta_non_cached", "_propagate_tensor_meta")
+                    if hasattr(ShardingPropagator, n))
+        real = getattr(ShardingPropagator, name)
+        mode = self
+
+        def paused(*args, **kwargs):
+            mode._paused += 1
+            try:
+                return real(*args, **kwargs)
+            finally:
+                mode._paused -= 1
+
+        self._restore = (name, real)
+        setattr(ShardingPropagator, name, paused)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+        setattr(ShardingPropagator, *self._restore)
+        return super().__exit__(*exc)
 
     # --- live memory -------------------------------------------------------
 
@@ -168,6 +199,12 @@ class GraphAnalysisMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._paused:
+            return func(*args, **kwargs)
+        if any(issubclass(t, DTensor) for t in types):
+            # a sharded program: DTensor runs the operation on each rank's
+            # local shards, which this mode then records (one rank's work)
+            return NotImplemented
         out = func(*args, **kwargs)
         if func.namespace != "prim":  # metadata reads (`.device`), not operations
             self._record(func, args, kwargs, out)

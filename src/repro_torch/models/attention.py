@@ -26,6 +26,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -99,12 +100,25 @@ class QKV(NamedTuple):
     v: Tensor  # (B, S, Hkv, D)
 
 
+def _split_heads(t: Tensor, heads: int, hd: int) -> Tensor:
+    """(B, S, H*hd) -> (B, S, H, hd). A DTensor sharded on its last dim
+    over a mesh axis that does not divide H is first gathered there: the
+    split would cut heads."""
+    if isinstance(t, DTensor):
+        sizes = t.device_mesh.shape
+        last = t.dim() - 1
+        pl = [Replicate() if p == Shard(last) and heads % sizes[i] else p
+              for i, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(t.shape[0], t.shape[1], heads, hd)
+
+
 def qkv_project(params: dict, x: Tensor, cfg: ArchConfig, positions: Tensor) -> QKV:
-    b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.head_dim
-    q = dense(x, params["wq"]["w"], params["wq"].get("b")).reshape(b, s, hq, hd)
-    k = dense(x, params["wk"]["w"], params["wk"].get("b")).reshape(b, s, hkv, hd)
-    v = dense(x, params["wv"]["w"], params["wv"].get("b")).reshape(b, s, hkv, hd)
+    q = _split_heads(dense(x, params["wq"]["w"], params["wq"].get("b")), hq, hd)
+    k = _split_heads(dense(x, params["wk"]["w"], params["wk"].get("b")), hkv, hd)
+    v = _split_heads(dense(x, params["wv"]["w"], params["wv"].get("b")), hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)

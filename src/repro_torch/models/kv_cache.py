@@ -17,6 +17,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.distributed.sharding import shard_offset
 
 Tensor = torch.Tensor
 
@@ -70,14 +73,34 @@ def _fields(cache: KVCache, k_new: Tensor, v_new: Tensor):
     return (cache.k, k_new), (cache.v, v_new)
 
 
+def _write_local(dst: DTensor, new: Tensor, pos: int) -> None:
+    """`dst[:, pos:pos + S_new] = new` for a DTensor cache, on each rank's
+    own shard: the new rows in the cache's batch layout, written where
+    they fall in the rank's slice of the sequence."""
+    mesh = dst.device_mesh
+    pl = [Replicate() if p == Shard(1) else p for p in dst.placements]
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    rows = new.redistribute(mesh, pl).to_local()
+    local = dst.to_local()
+    off = shard_offset(dst, 1)
+    lo, hi = max(pos, off), min(pos + rows.shape[1], off + local.shape[1])
+    if lo < hi:
+        local[:, lo - off:hi - off] = rows[:, lo - pos:hi - pos].to(local.dtype)
+
+
 def write_cache(cache: KVCache, k_new: Tensor, v_new: Tensor, pos: int) -> KVCache:
     """Insert (B, S_new, Hkv, D) at sequence offset `pos`, in place.
 
-    `pos` is clamped so the update fits, as `dynamic_update_slice` does."""
+    `pos` is clamped so the update fits, as `dynamic_update_slice` does.
+    A DTensor cache (on a mesh) is written shard by shard."""
     s_new, smax = k_new.shape[1], cache.k.shape[1]
     pos = max(0, min(int(pos), smax - s_new))
     for dst, new in _fields(cache, k_new, v_new):
-        dst[:, pos:pos + s_new] = new.to(dst.dtype)
+        if isinstance(dst, DTensor):
+            _write_local(dst, new, pos)
+        else:
+            dst[:, pos:pos + s_new] = new.to(dst.dtype)
     return cache
 
 

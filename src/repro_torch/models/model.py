@@ -16,20 +16,40 @@ which a decode step replaces in the list with the layer's new state.
 (`attention_dense_core`), with `ModelCtx(remat=True)` checkpointing each
 super-block as the reference checkpoints its scan body; prefill keeps the
 flash-attention kernel. MoE layers run the single-device path
-(`models/moe.py`). Not ported yet: the distribution knobs of `ModelCtx`
-(ROADMAP A7b).
+(`models/moe.py`) without a mesh.
+
+On a mesh (`ModelCtx.mesh`), parameters and inputs are DTensors
+(`distributed/sharding.py` places them) and DTensor's sharding
+propagation takes the place of GSPMD. `ctx.constrain` pins (B, S, D)
+activations to the batch axes (and S to `seq_axis`) where the reference
+pins them. Where the reference runs a `shard_map` body, or DTensor has no
+rule, the port runs local tensors: the attention cores (the flash kernel
+is one custom operation) on batch- and, where both head counts divide
+`model`, head-sharded q, k, v; MoE layers through `ctx.ep_shard`
+(`distributed/expert_parallel.py`; without one, an `EPShard` over the
+context's batch axes); decode attention through `ctx.seq_shard`
+(`distributed/flash_decode.py`) or, on a sequence-sharded cache, the same
+partial-softmax combine over the axes that shard it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import math
 from typing import Any, Optional, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.expert_parallel import EPShard
+from repro_torch.distributed.flash_decode import decode_partial
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.attention import (
     attention_core,
@@ -64,26 +84,56 @@ LayerState = Union[KVCache, m2.SSMState]
 
 @dataclasses.dataclass(frozen=True)
 class ModelCtx:
-    """Execution context. `kv_quantized` and `remat` (checkpoint each
-    super-block in `forward`) are ported; the reference's distribution
-    knobs raise until their slice lands."""
+    """Execution context: distribution + cache policy knobs."""
 
-    ep_shard: Optional[Any] = None
-    seq_shard: Optional[Any] = None
+    ep_shard: Optional[Any] = None  # distributed.EPShard | None
+    seq_shard: Optional[Any] = None  # distributed.SeqShard | None (flash-decode)
     kv_quantized: bool = False
-    remat: bool = False
-    mesh: Optional[Any] = None
-    batch_axes: tuple = ()
-    seq_axis: Optional[str] = None
+    remat: bool = False  # checkpoint each super-block (training)
+    mesh: Optional[Any] = None  # the DeviceMesh activations are pinned on
+    batch_axes: tuple = ()  # activation batch-dim mesh axes
+    seq_axis: Optional[str] = None  # sequence-parallel axis (perf option)
 
-    def __post_init__(self):
-        unported = [f.name for f in dataclasses.fields(self)
-                    if f.name not in ("kv_quantized", "remat")
-                    and getattr(self, f.name) != f.default]
-        if unported:
-            raise NotImplementedError(
-                f"ModelCtx fields {unported} (expert/sequence sharding, meshes) "
-                "are not ported yet: ROADMAP A7b")
+    def constrain(self, x: Tensor) -> Tensor:
+        """Pin activation sharding: (B, S, D) batch over batch_axes, and S
+        over `seq_axis` when set. Without a mesh, or off (B, S, D), x."""
+        if self.mesh is None or x.dim() != 3:
+            return x
+        return shd.constrain(x, self.mesh, shd.P(tuple(self.batch_axes) or None,
+                                                 self.seq_axis, None))
+
+    def unshard(self, tree):
+        """Parameters as a layer reads them: each DTensor gathered over
+        every mesh axis but `model` (FSDP's per-layer all-gather; the
+        gradient leaves as a reduce-scatter), the MoE subtree left to the
+        expert-parallel executor. Without a mesh, the tree."""
+        if self.mesh is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: v if k == "moe" else self.unshard(v) for k, v in tree.items()}
+        if not isinstance(tree, DTensor):
+            return tree
+        names = tuple(self.mesh.mesh_dim_names)
+        pl = [p if names[i] == "model" else Replicate() for i, p in enumerate(tree.placements)]
+        return tree.redistribute(self.mesh, pl) if pl != list(tree.placements) else tree
+
+    def local_placements(self, t: Tensor, head_dims: tuple[int, ...] = ()) -> list:
+        """Placements of a (B, S, H, ...) tensor for a local body: batch
+        over the batch axes where they divide it, heads over `model` where
+        every count in `head_dims` divides it, the rest (and every mesh dim
+        of size 1) replicated."""
+        names = tuple(self.mesh.mesh_dim_names)
+        sizes = shd.axis_sizes(self.mesh)
+        pl: list = [Replicate()] * len(names)
+        bs = math.prod(sizes[a] for a in self.batch_axes)
+        if self.batch_axes and t.shape[0] % bs == 0:
+            for a in self.batch_axes:
+                if sizes[a] > 1:
+                    pl[names.index(a)] = Shard(0)
+        tp = sizes.get("model", 1)
+        if head_dims and tp > 1 and all(h % tp == 0 for h in head_dims):
+            pl[names.index("model")] = Shard(2)
+        return pl
 
 
 def _kinds(cfg: ArchConfig) -> list[str]:
@@ -153,9 +203,39 @@ def param_count(params: dict) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _embed(tokens: Tensor, table: Tensor, ctx: ModelCtx) -> Tensor:
+    """`embed`; on a mesh, on local tensors: each rank looks its batch
+    rows' tokens up in its slice of the vocab (zero outside it), and a sum
+    over `model` completes the rows where the vocab is split there
+    (DTensor's index rule refuses a batch split over two mesh axes in
+    some PyTorch versions)."""
+    if not isinstance(table, DTensor):
+        return embed(tokens, table)
+    mesh = table.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    pl = ctx.local_placements(tokens)
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    tok = tokens.redistribute(mesh, pl).to_local()
+    # the table's gradient is partial over the axes that split the tokens
+    grads = [Partial() if p == Replicate() and pl[i] != Replicate() else p
+             for i, p in enumerate(table.placements)]
+    local = table.to_local(grad_placements=grads)
+    split = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    if not split:
+        x = embed(tok, local)
+    else:
+        off = shd.shard_offset(table, 0)
+        inside = (tok >= off) & (tok < off + local.shape[0])
+        x = embed(torch.where(inside, tok - off, 0), local) * inside[..., None].to(local.dtype)
+        for i in split:
+            x = col.psum(x, mesh.get_group(names[i]))
+    return DTensor.from_local(x, mesh, pl, run_check=False)
+
+
 def _embed_inputs(params: dict, tokens: Tensor, cfg: ArchConfig,
-                  frontend_embed: Tensor | None) -> Tensor:
-    x = embed(tokens, params["embed"]["table"])
+                  frontend_embed: Tensor | None, ctx: ModelCtx) -> Tensor:
+    x = _embed(tokens, ctx.unshard(params["embed"]["table"]), ctx)
     if frontend_embed is not None:
         fe = frontend_embed.to(x.dtype)
         if cfg.frontend == "vision_patches":
@@ -167,30 +247,90 @@ def _embed_inputs(params: dict, tokens: Tensor, cfg: ArchConfig,
     return x
 
 
-def _apply_ffn(p_ffn: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, dict]:
+def _apply_ffn(p_ffn: dict, x: Tensor, cfg: ArchConfig, ctx: ModelCtx
+               ) -> tuple[Tensor, dict]:
     if "dense" in p_ffn:
         return mlp(p_ffn["dense"], x, cfg.mlp_variant), {}
     b, s, d = x.shape
-    y, metrics = moe_apply(p_ffn["moe"], x.reshape(b * s, d), cfg)
+    xt = x.reshape(b * s, d)
+    ep = ctx.ep_shard
+    if ep is None and isinstance(x, DTensor):
+        # the experts sharded over `model` by the parameter rules: expert
+        # parallelism over the context's token axes (GSPMD's partition of
+        # the single-device formulation)
+        ep = EPShard(x.device_mesh, token_axes=tuple(ctx.batch_axes))
+    y, metrics = ep.moe(p_ffn["moe"], xt, cfg) if ep is not None else moe_apply(
+        p_ffn["moe"], xt, cfg)
     return y.reshape(b, s, d), metrics
 
 
-def _ffn(p: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, dict]:
+def _ffn(p: dict, x: Tensor, cfg: ArchConfig, ctx: ModelCtx) -> tuple[Tensor, dict]:
     """The layer's MLP/MoE residual, where it has one."""
     if "ffn" not in p:
         return x, {}
-    y, metrics = _apply_ffn(p["ffn"], rms_norm(x, p["norm2"]["scale"], cfg.norm_eps), cfg)
+    x = ctx.constrain(x)
+    y, metrics = _apply_ffn(p["ffn"], rms_norm(x, p["norm2"]["scale"], cfg.norm_eps), cfg,
+                            ctx)
     return x + y, metrics
 
 
-def _logits(params: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+def _attend(attend, q: Tensor, k: Tensor, v: Tensor, ctx: ModelCtx) -> Tensor:
+    """A causal attention core; on a mesh, on local tensors (the
+    reference's GSPMD partitions the core; the flash kernel is one custom
+    operation DTensor has no rule for): batch-sharded, and q's heads over
+    `model` where they divide it. K/V heads shard with them where they
+    divide too; else each rank takes the whole K/V and keeps the heads of
+    its q heads' groups (their gradients then sum over `model`)."""
+    if not isinstance(q, DTensor):
+        return attend(q, k, v, causal=True)
+    mesh = q.device_mesh
+    hq, hkv = q.shape[2], k.shape[2]
+    qpl = ctx.local_placements(q, (hq,))
+    kvpl = ctx.local_placements(k, (hq, hkv))
+    q_l = q.redistribute(mesh, qpl).to_local()
+    if qpl == kvpl:
+        k_l, v_l = (t.redistribute(mesh, kvpl).to_local() for t in (k, v))
+    else:  # q split by head over `model`, K/V whole there
+        names = tuple(mesh.mesh_dim_names)
+        m = names.index("model")
+        grads = [Partial() if i == m else p for i, p in enumerate(kvpl)]
+        r, h_loc = mesh.get_coordinate()[m], q_l.shape[2]
+        k_l, v_l = (torch.repeat_interleave(t.redistribute(mesh, kvpl).to_local(
+            grad_placements=grads), hq // hkv, dim=2)[:, :, r * h_loc:(r + 1) * h_loc]
+            for t in (k, v))
+    out = attend(q_l, k_l, v_l, causal=True)
+    return DTensor.from_local(out, mesh, qpl, run_check=False)
+
+
+def _decode_attention(q: Tensor, k: Tensor, v: Tensor, length, ctx: ModelCtx) -> Tensor:
+    """One-token attention over the cache: `ctx.seq_shard`'s flash-decode
+    when set; over a DTensor cache, the same partial-softmax combine over
+    the mesh axes that shard its sequence (GSPMD's reduction of a sharded
+    softmax); else `attention_decode`."""
+    if ctx.seq_shard is not None:
+        return ctx.seq_shard.decode_attention(q, k, v, length)
+    if not isinstance(k, DTensor):
+        return attention_decode(q, k, v, length)
+    mesh = k.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    seq_dims = [i for i, pl in enumerate(k.placements) if pl == Shard(1)]
+    qpl = [Replicate() if pl == Shard(1) else pl for pl in k.placements]
+    q_l = (q.redistribute(mesh, qpl) if isinstance(q, DTensor) else
+           DTensor.from_local(q, mesh, [Replicate()] * mesh.ndim).redistribute(mesh, qpl))
+    out = decode_partial(q_l.to_local(), k.to_local(), v.to_local(), length,
+                         shd.shard_offset(k, 1),
+                         [mesh.get_group(names[i]) for i in seq_dims])
+    return DTensor.from_local(out, mesh, qpl, run_check=False)
+
+
+def _logits(params: dict, x: Tensor, cfg: ArchConfig, ctx: ModelCtx) -> Tensor:
+    x = rms_norm(x, ctx.unshard(params["final_norm"]["scale"]), cfg.norm_eps)
     table = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]
-    return unembed(x, table)
+    return unembed(x, ctx.unshard(table))
 
 
 def _superblock(blocks: list[dict], x: Tensor, *, cfg: ArchConfig, positions: Tensor,
-                attend, state: list[LayerState] | None, first: int
+                attend, state: list[LayerState] | None, first: int, ctx: ModelCtx
                 ) -> tuple[Tensor, Tensor | None]:
     """One super-block (the arch's layer pattern, layers `first`...) over a
     whole sequence; returns (x, its summed MoE aux, None without a MoE
@@ -198,10 +338,12 @@ def _superblock(blocks: list[dict], x: Tensor, *, cfg: ArchConfig, positions: Te
     Mamba-2 layer's final state, as float32, in its entry."""
     aux = None
     for j, (p, kind) in enumerate(zip(blocks, cfg.pattern())):
+        p = ctx.unshard(p)
+        x = ctx.constrain(x)
         h = rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
         if kind == "attn":
             qkv = qkv_project(p["attn"], h, cfg, positions)
-            att = mask_padded_heads(attend(qkv.q, qkv.k, qkv.v, causal=True), cfg)
+            att = mask_padded_heads(_attend(attend, qkv.q, qkv.k, qkv.v, ctx), cfg)
             x = x + attention_out(p["attn"], att)
             if state is not None:
                 write_cache(state[first + j], qkv.k, qkv.v, 0)
@@ -210,13 +352,13 @@ def _superblock(blocks: list[dict], x: Tensor, *, cfg: ArchConfig, positions: Te
             x = x + y
             if state is not None:
                 state[first + j] = m2.SSMState(*(t.to(torch.float32) for t in st))
-        x, metrics = _ffn(p, x, cfg)
+        x, metrics = _ffn(p, x, cfg, ctx)
         if "moe_aux" in metrics:
             aux = metrics["moe_aux"] if aux is None else aux + metrics["moe_aux"]
-    return x, aux
+    return ctx.constrain(x), aux
 
 
-def _layer_stack(params: dict, x: Tensor, cfg: ArchConfig, *, attend,
+def _layer_stack(params: dict, x: Tensor, cfg: ArchConfig, *, attend, ctx: ModelCtx,
                  state: list[LayerState] | None = None, remat: bool = False
                  ) -> tuple[Tensor, Tensor | None]:
     """The layer stack over a whole sequence, one super-block at a time
@@ -229,11 +371,25 @@ def _layer_stack(params: dict, x: Tensor, cfg: ArchConfig, *, attend,
     for sb in range(cfg.n_superblocks()):
         run = functools.partial(_superblock, params["blocks"][sb * n:(sb + 1) * n],
                                 cfg=cfg, positions=positions, attend=attend,
-                                state=state, first=sb * n)
-        x, a = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+                                state=state, first=sb * n, ctx=ctx)
+        x, a = checkpoint(_on_mesh(ctx, run), x, use_reentrant=False) if remat else run(x)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
+
+
+def _on_mesh(ctx: ModelCtx, fn=None):
+    """DTensor's implicit replication of plain tensors (positions, masks)
+    on a mesh, as a context (nothing without a mesh); with `fn`, `fn`
+    run inside it (remat's recompute runs outside the caller's context)."""
+    if fn is not None:
+        def run(*args):
+            with _on_mesh(ctx):
+                return fn(*args)
+        return run
+    if ctx.mesh is None:
+        return contextlib.nullcontext()
+    return implicit_replication()
 
 
 def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
@@ -241,25 +397,56 @@ def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
             ctx: ModelCtx = ModelCtx()) -> tuple[Tensor, Tensor]:
     """tokens (B, S) -> (logits (B, S, V) float32, mean MoE aux loss per
     layer). Differentiable: plain attention cores, never the kernel."""
-    x = _embed_inputs(params, tokens, cfg, frontend_embed)
-    x, aux = _layer_stack(params, x, cfg, attend=attention_dense_core, remat=ctx.remat)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(params, x, cfg), aux / max(cfg.n_layers, 1)
+    with _on_mesh(ctx):
+        x = ctx.constrain(_embed_inputs(params, tokens, cfg, frontend_embed, ctx))
+        x, aux = _layer_stack(params, x, cfg, attend=attention_dense_core, ctx=ctx,
+                              remat=ctx.remat)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return _logits(params, x, cfg, ctx), aux / max(cfg.n_layers, 1)
+
+
+def _token_terms(logits: Tensor, targets: Tensor) -> tuple[Tensor, Tensor]:
+    """Mean next-token NLL and z-loss term (mean logZ^2) over the tokens."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return (logz - gold).mean(), (logz ** 2).mean()
+
+
+def _sharded_token_terms(logits: DTensor, targets: Tensor, ctx: ModelCtx
+                         ) -> tuple[Tensor, Tensor]:
+    """`_token_terms` on a mesh: each rank's rows, the vocab gathered, then
+    the mean of the ranks' means over the batch axes (equal shards: the
+    global mean; one rank: its own, bitwise). The gradient stays
+    batch-sharded (DTensor's rule for the gather's backward replicates it)."""
+    mesh = ctx.mesh
+    pl = ctx.local_placements(logits)
+    if not isinstance(targets, DTensor):
+        targets = DTensor.from_local(targets, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    terms = _token_terms(logits.redistribute(mesh, pl).to_local(),
+                         targets.redistribute(mesh, pl).to_local())
+    for i, (p, name) in enumerate(zip(pl, mesh.mesh_dim_names)):
+        if p != Replicate():
+            terms = tuple(col.pmean(t, mesh.get_group(name)) for t in terms)
+    return tuple(DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                 for t in terms)
 
 
 def loss_fn(params: dict, tokens: Tensor, targets: Tensor, cfg: ArchConfig, *,
             frontend_embed: Tensor | None = None,
             ctx: ModelCtx = ModelCtx()) -> tuple[Tensor, dict]:
     """Next-token cross-entropy (+ MoE aux + z-loss). targets = shifted ids.
-    Returns (loss, {"nll", "zloss", "moe_aux"}), float32 scalars."""
+    Returns (loss, {"nll", "zloss", "moe_aux"}), float32 scalars
+    (replicated DTensors on a mesh)."""
     logits, aux = forward(params, tokens, cfg, frontend_embed=frontend_embed, ctx=ctx)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = (logz - gold).mean()
-    zloss = 1e-4 * (logz ** 2).mean()
-    moe_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
-    loss = nll + zloss + moe_w * aux
+    with _on_mesh(ctx):
+        if isinstance(logits, DTensor):
+            nll, z2 = _sharded_token_terms(logits, targets, ctx)
+        else:
+            nll, z2 = _token_terms(logits, targets)
+        zloss = 1e-4 * z2
+        moe_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
+        loss = nll + zloss + moe_w * aux
     return loss, {"nll": nll, "zloss": zloss, "moe_aux": aux}
 
 
@@ -288,18 +475,24 @@ def prefill(params: dict, tokens: Tensor, cfg: ArchConfig, max_len: int, *,
     The whole padded sequence is written into the cache; the engine masks
     positions at and past each slot's length and decode overwrites them.
     A Mamba-2 layer's state takes in every position, so the engine
-    prefills SSM and hybrid archs at the prompt's exact length.
+    prefills SSM and hybrid archs at the prompt's exact length. On a mesh
+    the caches are DTensors placed by `decode_state_specs`.
     """
-    x = _embed_inputs(params, tokens, cfg, frontend_embed)
-    b, s = tokens.shape
-    state: list[LayerState] = [
-        init_cache(b, max_len, cfg.n_kv_heads_eff, cfg.head_dim,
-                   quantized=ctx.kv_quantized, dtype=x.dtype, device=x.device)
-        if kind == "attn" else None  # filled by the layer's prefill
-        for kind in _kinds(cfg)]
-    x, _ = _layer_stack(params, x, cfg, attend=attention_core, state=state)
-    at = s - 1 if logit_index is None else max(0, min(int(logit_index), s - 1))
-    return _logits(params, x[:, at:at + 1], cfg), state
+    with _on_mesh(ctx):
+        x = _embed_inputs(params, tokens, cfg, frontend_embed, ctx)
+        b, s = tokens.shape
+        state: list[LayerState] = [
+            init_cache(b, max_len, cfg.n_kv_heads_eff, cfg.head_dim,
+                       quantized=ctx.kv_quantized, dtype=x.dtype, device=x.device)
+            if kind == "attn" else None  # filled by the layer's prefill
+            for kind in _kinds(cfg)]
+        if ctx.mesh is not None:
+            plan = shd.ShardingPlan.for_mesh(ctx.mesh)
+            state = shd.distribute(state, shd.decode_state_specs(cfg, state, ctx.mesh, plan),
+                                   ctx.mesh)
+        x, _ = _layer_stack(params, x, cfg, attend=attention_core, ctx=ctx, state=state)
+        at = s - 1 if logit_index is None else max(0, min(int(logit_index), s - 1))
+        return _logits(params, x[:, at:at + 1], cfg, ctx), state
 
 
 # ---------------------------------------------------------------------------
@@ -308,19 +501,21 @@ def prefill(params: dict, tokens: Tensor, cfg: ArchConfig, max_len: int, *,
 
 
 def _decode_layers(params: dict, x: Tensor, state: list[LayerState], cfg: ArchConfig,
-                   positions: Tensor, write, length) -> Tensor:
+                   positions: Tensor, write, length, ctx: ModelCtx) -> Tensor:
     for i, (p, kind) in enumerate(zip(params["blocks"], _kinds(cfg))):
+        p = ctx.unshard(p)
+        x = ctx.constrain(x)
         h = rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
         if kind == "attn":
             qkv = qkv_project(p["attn"], h, cfg, positions)
             write(state[i], qkv.k, qkv.v)
             k, v = read_cache(state[i], x.dtype)
-            att = mask_padded_heads(attention_decode(qkv.q, k, v, length), cfg)
+            att = mask_padded_heads(_decode_attention(qkv.q, k, v, length, ctx), cfg)
             x = x + attention_out(p["attn"], att)
         else:
             y, state[i] = m2.mamba2_decode_step(p["mamba"], h, state[i], cfg)
             x = x + y
-        x, _ = _ffn(p, x, cfg)
+        x, _ = _ffn(p, x, cfg, ctx)
     return x
 
 
@@ -331,11 +526,12 @@ def decode_step(params: dict, state: list[LayerState], tokens: Tensor, cur_len: 
     every row). The new token's K/V is written at index cur_len and it
     attends to cache[:cur_len + 1]. `state` is updated in place."""
     cur_len = int(cur_len)
-    x = _embed_inputs(params, tokens, cfg, frontend_embed)
-    positions = torch.full((1, 1), cur_len, dtype=torch.int32, device=x.device)
-    x = _decode_layers(params, x, state, cfg, positions,
-                       lambda c, k, v: write_cache(c, k, v, cur_len), cur_len + 1)
-    return _logits(params, x, cfg), state
+    with _on_mesh(ctx):
+        x = _embed_inputs(params, tokens, cfg, frontend_embed, ctx)
+        positions = torch.full((1, 1), cur_len, dtype=torch.int32, device=x.device)
+        x = _decode_layers(params, x, state, cfg, positions,
+                           lambda c, k, v: write_cache(c, k, v, cur_len), cur_len + 1, ctx)
+        return _logits(params, x, cfg, ctx), state
 
 
 def decode_step_batched(params: dict, state: list[LayerState], tokens: Tensor,
@@ -345,12 +541,12 @@ def decode_step_batched(params: dict, state: list[LayerState], tokens: Tensor,
     """Continuous-batching decode: per-slot lengths (B,) on the tokens'
     device. Each slot's new K/V is written at its own position and it
     attends to its own `lengths[b] + 1` cache entries. In place."""
-    x = _embed_inputs(params, tokens, cfg, frontend_embed)
+    x = _embed_inputs(params, tokens, cfg, frontend_embed, ctx)
     positions = lengths[:, None].to(torch.int32)  # per-slot RoPE position
     x = _decode_layers(params, x, state, cfg, positions,
                        lambda c, k, v: write_cache_batched(c, k, v, lengths),
-                       lengths + 1)
-    return _logits(params, x, cfg), state
+                       lengths + 1, ctx)
+    return _logits(params, x, cfg, ctx), state
 
 
 def splice_slot(state: list[LayerState], pstate: list[LayerState], slot: int

@@ -16,8 +16,17 @@ are summed per token. `index_add_` on CUDA adds floats with atomics, in an
 order that changes from run to run; the gather gives the same float32
 products as the reference and sums them in a fixed order.
 
-Expert parallelism (`axis_name`, `ep_size > 1`) waits for
-`distributed/expert_parallel.py` (ROADMAP A7).
+Expert parallelism (`distributed/expert_parallel.py`): with `axis_name`
+(the expert axis's process group), each rank of the axis routes the same
+tokens, holds experts [ep_index * E/ep_size, (ep_index + 1) * E/ep_size)
+as the `experts` leaves it is given, runs those experts' slots of the
+global table, gathers its pairs' outputs (a pair whose expert lives on
+another rank adds zero) and one all-reduce over the axis completes the
+combine, in `combine_dtype`. The tokens and gates enter the per-rank part
+through `collectives.enter`, so their gradients sum over the axis, and the
+all-reduce's gradient is the identity (the reference's `shard_map`
+transposes). With one rank on the axis the result is the single-device
+path's, bitwise.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig, MoEConfig
+from repro_torch.distributed import collectives as col
 from repro_torch.models.layers import init_dense, init_mlp, mlp, normal
 
 Tensor = torch.Tensor
@@ -75,16 +85,20 @@ def _capacity(tokens: int, mc: MoEConfig) -> int:
 
 
 def moe_apply(params: dict, x: Tensor, cfg: ArchConfig, *,
-              axis_name: str | None = None, ep_size: int = 1) -> tuple[Tensor, dict]:
+              axis_name=None, ep_size: int = 1, ep_index: int = 0,
+              combine_dtype=torch.float32) -> tuple[Tensor, dict]:
     """MoE forward over local tokens x (T, D). Returns (y (T, D), metrics)
-    with metrics {"moe_aux", "moe_drop_frac"}, both tensors."""
-    if axis_name is not None or ep_size > 1:
-        raise NotImplementedError(
-            "expert parallelism is not ported yet: ROADMAP A7 "
-            "(distributed/expert_parallel.py)")
+    with metrics {"moe_aux", "moe_drop_frac"}, both tensors.
+
+    `axis_name`: the expert axis's process group (None: one device);
+    `ep_size` ranks on it, this one `ep_index`, holding E / ep_size
+    experts; `combine_dtype`: the combine all-reduce's type."""
     mc = cfg.moe
     t, d = x.shape
     e, k = mc.num_experts, mc.top_k
+    if e % ep_size:
+        raise ValueError(f"{e} experts do not split over {ep_size} ranks")
+    e_loc = e // ep_size
     cap = _capacity(t, mc)
     dev = x.device
 
@@ -104,15 +118,19 @@ def moe_apply(params: dict, x: Tensor, cfg: ArchConfig, *,
     # column `cap` takes the drops and is sliced off; the sentinel row is t
     table_t = torch.full((e, cap + 1), t, dtype=torch.long, device=dev)
     table_t[se, torch.clamp_max(pos, cap)] = torch.where(keep, st, t)
-    table_t = table_t[:, :cap]
-    # inverse map: each pair's kept slot in the flattened (E*C) table, or
-    # the zero row E*C past its end when the pair was dropped
-    slot_sorted = torch.where(keep, se * cap + pos, e * cap)
+    table_t = table_t[ep_index * e_loc:(ep_index + 1) * e_loc, :cap]  # this rank's experts
+    # inverse map: each pair's kept slot in this rank's flattened (E_loc*C)
+    # table, or the zero row E_loc*C past its end when the pair was dropped
+    # or its expert lives on another rank
+    local = se - ep_index * e_loc
+    mine = keep & (local >= 0) & (local < e_loc)
+    slot_sorted = torch.where(mine, local * cap + pos, e_loc * cap)
     slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted).view(t, k)
 
     # --- expert FFN, batched over the expert axis -------------------------
-    x_pad = torch.cat([x, x.new_zeros((1, d))], dim=0)  # sentinel row
-    xe = x_pad[table_t]  # (E, C, D)
+    xv = col.enter(x, axis_name)
+    x_pad = torch.cat([xv, xv.new_zeros((1, d))], dim=0)  # sentinel row
+    xe = x_pad[table_t]  # (E_loc, C, D)
     w = params["experts"]
     gate_act = torch.bmm(xe, w["w_gate"].to(xe.dtype))
     if cfg.mlp_variant == "swiglu":
@@ -120,12 +138,14 @@ def moe_apply(params: dict, x: Tensor, cfg: ArchConfig, *,
         h = F.silu(gate_act.to(torch.float32)).to(xe.dtype) * up
     else:  # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(gate_act.to(torch.float32), approximate="tanh").to(xe.dtype)
-    ye = torch.bmm(h, w["w_down"].to(xe.dtype))  # (E, C, D)
+    ye = torch.bmm(h, w["w_down"].to(xe.dtype))  # (E_loc, C, D)
 
     # --- combine: gather each pair's weighted output, sum over k ----------
-    ye_pad = torch.cat([ye.reshape(e * cap, d).to(torch.float32),
+    ye_pad = torch.cat([ye.reshape(e_loc * cap, d).to(torch.float32),
                         torch.zeros((1, d), dtype=torch.float32, device=dev)], dim=0)
-    y = (ye_pad[slot] * gates[..., None]).sum(1)  # (T, D) float32
+    y = (ye_pad[slot] * col.enter(gates, axis_name)[..., None]).sum(1)  # (T, D) float32
+    if axis_name is not None:
+        y = col.psum(y.to(combine_dtype), axis_name).to(torch.float32)
     if mc.num_shared_experts:
         y = y + mlp(params["shared"], x, cfg.mlp_variant).to(torch.float32)
     return y.to(x.dtype), {"moe_aux": aux, "moe_drop_frac": drop_frac}

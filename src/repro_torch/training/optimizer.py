@@ -24,6 +24,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
 
 Tensor = torch.Tensor
@@ -109,6 +110,17 @@ def _f32(ts: list[Tensor]) -> list[Tensor]:
     return [t.to(torch.float32) for t in ts]
 
 
+def _copy_(dst: list[Tensor], src: list[Tensor]) -> None:
+    """`torch._foreach_copy_`; DTensors (a sharded state, where DTensor has
+    no rule for it) shard by shard, both sides in the same placements."""
+    if dst and isinstance(dst[0], DTensor):
+        for d, s in zip(dst, src):
+            if d.placements != s.placements:
+                raise ValueError(f"copy from {s.placements} into {d.placements}")
+        dst, src = [d.to_local() for d in dst], [s.to_local() for s in src]
+    torch._foreach_copy_(dst, src)
+
+
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: OptState, cfg: AdamWConfig
                  ) -> tuple[Any, OptState, dict]:
@@ -156,9 +168,9 @@ def adamw_update(params: Any, grads: Any, state: OptState, cfg: AdamWConfig
         torch._foreach_mul_(delta, lr)
         newp = torch._foreach_sub(p32, delta)
         del delta, p32
-        torch._foreach_copy_(ps, newp)
-        torch._foreach_copy_([m_leaves[i] for i in idx], m32)
-        torch._foreach_copy_([v_leaves[i] for i in idx], v32)
+        _copy_(ps, newp)
+        _copy_([m_leaves[i] for i in idx], m32)
+        _copy_([v_leaves[i] for i in idx], v32)
     return (pytree.tree_unflatten(p_leaves, spec),
             OptState(step=step, m=state.m, v=state.v),
             {"lr": lr, "grad_norm": gnorm})

@@ -153,8 +153,29 @@ def test_checkpoint_rolling_cleanup_and_shape_check(tmp_path):
     assert torch.equal(back["x"], tree["x"])
     with pytest.raises(ValueError, match="shape"):
         ft.restore_checkpoint(str(tmp_path), 5, {"x": torch.zeros(5)})
-    with pytest.raises(NotImplementedError, match="A7b"):
-        ft.restore_checkpoint(str(tmp_path), 5, tree, shardings=object())
+
+
+def test_restore_with_shardings_places_each_leaf(tmp_path):
+    """`shardings=`: each leaf goes to its sharding's `place` (a DTensor
+    on that sharding's mesh in the elastic path; the 4 -> 2 rank restore
+    runs on gloo ranks in `tests/test_torch_lm_distributed.py`)."""
+    tree = {"x": torch.arange(4.0), "y": (torch.ones(2, 3, dtype=torch.bfloat16),)}
+    ft.save_checkpoint(str(tmp_path), 1, tree)
+    seen = []
+
+    class Sharding:
+        def __init__(self, tag):
+            self.tag = tag
+
+        def place(self, t):
+            seen.append(self.tag)
+            return (self.tag, t)
+
+    back = ft.restore_checkpoint(str(tmp_path), 1, tree,
+                                 shardings={"x": Sharding("x"), "y": (Sharding("y"),)})
+    assert seen == ["x", "y"]
+    assert back["x"][0] == "x" and torch.equal(back["x"][1], tree["x"])
+    assert back["y"][0][1].dtype == torch.bfloat16 and torch.equal(back["y"][0][1], tree["y"][0])
 
 
 def test_lm_params_to_numpy_inverts_from_numpy():

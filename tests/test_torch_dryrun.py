@@ -79,28 +79,54 @@ def test_emvs_model_flops_equal_reference(cell):
 
 
 def test_skip_reasons_name_what_is_missing():
+    """Every LM cell the reference runs, the port traces on both meshes;
+    skipped cells carry the reference's own reason, and the EMVS cells on
+    the multi mesh name the mesh step the port's dry run does not trace."""
     for arch in dryrun.ARCHS:
         cfg = j_get_config(arch)
+        tcfg = dryrun.get_config(arch)
         table = j_shapes.EMVS_CELLS if cfg.family == "emvs" else j_shapes.LM_CELLS
         for cell in table.values():
-            rec = dryrun.run_cell(arch, cell.name, "multi")
-            assert rec["skipped"], (arch, cell.name)
             ref_reason = j_shapes.cell_skipped(cfg, cell)
-            if ref_reason:
-                assert rec["skipped"] == ref_reason
-            else:
-                assert "A7" in rec["skipped"] and "distributed/sharding.py" in rec["skipped"]
-    assert "A7" in dryrun.run_cell("qwen3-8b", "train_4k")["skipped"]
-    # the one-card step is ported; the reference lowers train_4k over a mesh
-    assert "lower_train_step" in dryrun.port_skip(dryrun.LM_CELLS["train_4k"], "single")
-    for arch in ("deepseek-moe-16b", "kimi-k2-1t-a32b", "mamba2-2.7b",
-                 "jamba-1.5-large-398b"):
-        assert "A7" in dryrun.run_cell(arch, "train_4k")["skipped"]
-        for cell in ("prefill_32k", "decode_32k", "long_500k"):
-            # the serving cells trace, where the reference runs them
-            assert dryrun.port_skip(dryrun.LM_CELLS[cell], "single") is None
+            for mesh in dryrun.MESHES:
+                port = dryrun.port_skip(tcfg, table[cell.name], mesh)
+                if cfg.family == "emvs" and mesh == "multi":
+                    assert "make_emvs_step" in port
+                    assert dryrun.run_cell(arch, cell.name, mesh)["skipped"] == (
+                        ref_reason or port)
+                else:
+                    assert port is None, (arch, cell.name, mesh)
+                if ref_reason:
+                    assert dryrun.run_cell(arch, cell.name, mesh)["skipped"] == ref_reason
     assert "sub-quadratic" in dryrun.run_cell("qwen3-8b", "long_500k")["skipped"]
-    assert "sub-quadratic" in dryrun.run_cell("deepseek-moe-16b", "long_500k")["skipped"]
+    assert "sub-quadratic" in dryrun.run_cell("deepseek-moe-16b", "long_500k", "multi")["skipped"]
+
+
+@pytest.mark.parametrize("arch,cell,seq_shard", [("qwen3-8b", "decode_32k", False),
+                                                 ("jamba-1.5-large-398b", "long_500k", True)])
+def test_multi_mesh_cells_trace_one_rank(arch, cell, seq_shard, monkeypatch):
+    """Two serving cells on the (pod=2, data=16, model=16) mesh over a fake
+    group of 512 ranks, on fake CPU tensors: devices 512, one rank's
+    argument bytes a small share of the global ones, collectives counted,
+    the process's peak RSS unmoved, each traced in under 30 s. The hybrid's
+    long_500k decode goes through `SeqShard`."""
+    from repro_torch.distributed import flash_decode
+
+    calls = []
+    real = flash_decode.SeqShard.decode_attention
+    monkeypatch.setattr(flash_decode.SeqShard, "decode_attention",
+                        lambda self, *a: calls.append(self.seq_axis) or real(self, *a))
+    before = _max_rss_bytes()
+    rec = dryrun.run_cell(arch, cell, "multi", device="cpu")
+    assert "skipped" not in rec, rec.get("skipped")
+    assert rec["devices"] == 512 and rec["mesh"] == "multi" and rec["trace_s"] < 30
+    mem = rec["memory"]
+    assert 0 < mem["argument_bytes"] < mem["argument_bytes_global"] / 64
+    assert _max_rss_bytes() - before < 64 * 2**20 < mem["argument_bytes"]
+    roof = rec["roofline"]
+    assert roof["flops"] > 0 and roof["collectives"]["counts"].get("all-reduce", 0) > 0
+    assert bool(calls) == seq_shard and set(calls) <= {"data"}
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("arch,cell", [("deepseek-moe-16b", "prefill_32k"),
@@ -137,7 +163,7 @@ def test_an_operation_without_meta_kernel_skips_its_cell(monkeypatch):
 
 def test_records_summarize_and_report(tmp_path, capsys):
     out = tmp_path / "dryrun"
-    for arch, cell in CELLS[:2] + [("qwen3-8b", "train_4k")]:
+    for arch, cell in CELLS[:2] + [("qwen3-8b", "long_500k")]:
         assert dryrun.main(["--arch", arch, "--cell", cell, "--device", "cpu",
                             "--json", str(out / f"{arch}__{cell}__single.json")]) == 0
     recs = summarize_dryrun.load(str(out))

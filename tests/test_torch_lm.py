@@ -376,16 +376,19 @@ def test_moe_and_ssm_families_serve_on_cpu(arch, capsys):
     assert "served 3 requests / 12 tokens" in capsys.readouterr().out
 
 
-def test_unported_ctx_fields_raise():
-    """Expert and sequence sharding and meshes wait for A7b; `remat` and
-    `kv_quantized` are ported."""
-    assert TM.ModelCtx(kv_quantized=True).kv_quantized
-    assert TM.ModelCtx(remat=True).remat
-    for field, value in (("ep_shard", object()), ("seq_shard", object()),
-                         ("mesh", object()), ("batch_axes", ("data",)),
-                         ("seq_axis", "model")):
-        with pytest.raises(NotImplementedError, match=rf"{field}.*A7b"):
-            TM.ModelCtx(**{field: value})
+def test_model_ctx_fields_and_constrain_without_mesh():
+    """Every reference `ModelCtx` field exists and is accepted (the mesh
+    ones act in `tests/test_torch_lm_distributed.py`); without a mesh
+    `constrain` and `unshard` give their input back."""
+    assert [f.name for f in dataclasses.fields(TM.ModelCtx)] == \
+        [f.name for f in dataclasses.fields(JM.ModelCtx)]
+    ctx = TM.ModelCtx(ep_shard=object(), seq_shard=object(), batch_axes=("data",),
+                      seq_axis="model", kv_quantized=True, remat=True)
+    assert ctx.kv_quantized and ctx.remat and ctx.batch_axes == ("data",)
+    x = torch.ones(2, 3, 4)
+    assert TM.ModelCtx().constrain(x) is x and ctx.constrain(x) is x
+    tree = {"a": x}
+    assert ctx.unshard(tree) is tree
 
 
 @pytest.mark.parametrize("arch", ["musicgen-large", "llava-next-mistral-7b",

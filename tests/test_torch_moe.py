@@ -241,10 +241,27 @@ def test_dispatch_keeps_first_tokens_and_combines_each_once():
     torch.testing.assert_close(y[:, 0], g1 * want, atol=1e-6, rtol=0)
 
 
-def test_expert_parallel_is_not_ported():
-    _, tcfg, _, tp = _layer(0)
-    x = torch.zeros((4, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="A7.*expert_parallel"):
-        TMoE.moe_apply(tp, x, tcfg, ep_size=2)
-    with pytest.raises(NotImplementedError, match="A7"):
-        TMoE.moe_apply(tp, x, tcfg, axis_name="model")
+@pytest.mark.parametrize("ep_size", [2, 4])
+def test_expert_slices_sum_to_the_single_device_layer(ep_size):
+    """`moe_apply(ep_size=, ep_index=)` on one rank's expert slice, with no
+    axis (no all-reduce): the slices' routed outputs summed over the ranks
+    equal the whole layer's, within float32 rounding (1e-5), and each
+    slice carries the shared experts once. The collective runs in
+    `tests/test_torch_lm_distributed.py` on gloo ranks."""
+    jcfg, tcfg, jp, tp = _layer(3, capacity_factor=16.0)
+    x = torch.from_numpy(_tokens(4, 64, tcfg.d_model))
+    y_full, m_full = TMoE.moe_apply(tp, x, tcfg)
+    shared = TMoE.mlp(tp["shared"], x, tcfg.mlp_variant).to(torch.float32)
+    e_loc = tcfg.moe.num_experts // ep_size
+    routed = torch.zeros_like(y_full)
+    for r in range(ep_size):
+        p = {**tp, "experts": {k: w[r * e_loc:(r + 1) * e_loc]
+                               for k, w in tp["experts"].items()}}
+        y, m = TMoE.moe_apply(p, x, tcfg, ep_size=ep_size, ep_index=r)
+        assert float(m["moe_aux"]) == float(m_full["moe_aux"])
+        routed += y - shared
+    torch.testing.assert_close(routed + shared, y_full, atol=1e-5, rtol=0)
+    y_ref, _ = JMoE.moe_apply(jp, jnp.asarray(x.numpy()), jcfg)
+    np.testing.assert_allclose((routed + shared).numpy(), np.asarray(y_ref), atol=1e-4)
+    with pytest.raises(ValueError, match="split"):
+        TMoE.moe_apply(tp, x, tcfg, ep_size=3)

@@ -483,12 +483,37 @@ def test_bf16_training_lowers_the_loss():
     assert losses[-1] < losses[0] - 0.1, losses
 
 
-def test_mesh_is_not_ported():
-    _, tcfg = _configs("dense")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        make_train_step(tcfg, TrainOptions(), mesh=object())
-    with pytest.raises(NotImplementedError, match="A7b"):
-        make_model_ctx(tcfg, object(), TrainOptions())
+@pytest.mark.parametrize("family", ["dense", "moe"])
+def test_make_model_ctx_matches_reference_on_meshes(family):
+    """The context the step runs under, port against reference, on
+    stand-in meshes (the function reads only axis names and sizes): batch
+    axes, EP where the experts divide `model` with the knobs' dispatch,
+    combine type and zero3, sequence parallelism, remat."""
+    import types
+
+    from repro.training.train_step import make_model_ctx as j_make_model_ctx
+
+    jcfg, tcfg = _configs(family)
     assert make_model_ctx(tcfg, None, TrainOptions()).remat
+    assert make_model_ctx(tcfg, None, TrainOptions()).mesh is None
+    for axes in ({"data": 4, "model": 2}, {"pod": 2, "data": 2, "model": 4},
+                 {"data": 8, "model": 1}, {"data": 2, "model": 3}):
+        jmesh = types.SimpleNamespace(axis_names=tuple(axes), shape=dict(axes))
+        tmesh = types.SimpleNamespace(mesh_dim_names=tuple(axes), shape=tuple(axes.values()))
+        for knobs in ({}, {"ep_dispatch": "a2a", "moe_combine_bf16": True, "ep_zero3": True,
+                           "seq_parallel": True, "remat": False}, {"use_ep": False}):
+            want = j_make_model_ctx(jcfg, jmesh, JTrainOptions(**knobs))
+            got = make_model_ctx(tcfg, tmesh, TrainOptions(**knobs))
+            assert got.mesh is tmesh and got.batch_axes == want.batch_axes
+            assert (got.seq_axis, got.remat) == (want.seq_axis, want.remat)
+            assert (got.ep_shard is None) == (want.ep_shard is None), (axes, knobs)
+            if want.ep_shard is not None:
+                assert got.ep_shard.token_axes == want.ep_shard.token_axes
+                assert got.ep_shard.dispatch == want.ep_shard.dispatch
+                assert got.ep_shard.zero3 == want.ep_shard.zero3
+                assert str(got.ep_shard.combine_dtype).removeprefix("torch.") == \
+                    jnp.dtype(want.ep_shard.combine_dtype).name
     assert [f.name for f in dataclasses.fields(TrainOptions)] == \
         [f.name for f in dataclasses.fields(JTrainOptions)]
+
+
