@@ -43,7 +43,7 @@ Phases, each asserting, none caught:
      dsi, depth and mask, float and quantized, mean AbsRel on the float
      datapath below 0.25, the warm wall and a profile of one warm run,
      and B1's device time at the bucket with most segments beside its
-     bound;
+     bound and its plain version's time;
   4c. runs the paper's Fig 4a, 4b and 7a (`repro_torch.benchmarks`, the
      reference's sequences and sizes) and Table 3 on the card: every
      kernel row equals its matmul row and every claim holds;
@@ -103,9 +103,10 @@ Phases, each asserting, none caught:
      formulation's float32 votes, the int16 storage round trip, B2; its
      conf and zf must equal the fused rung's) and of the fused-store rung
      (B1 then B2), CUDA graphs between events; the dry run
-     (`repro_torch.launch.dryrun.run_cell`) of eventor-davis240's emvs_rt
-     and emvs_seg and qwen3-8b's prefill_32k and decode_32k on fake CUDA
-     tensors: `torch.cuda.memory_allocated()` must not move, and emvs_seg's
+     (`repro_torch.launch.dryrun.run_cell`, the one-card "card" mesh) of
+     eventor-davis240's emvs_rt and emvs_seg and qwen3-8b's prefill_32k and
+     decode_32k on fake CUDA tensors: `torch.cuda.memory_allocated()` must
+     not move, and emvs_seg's
      B1 call must count the bytes of `roofline.sweep_bound`; the linter's
      quick grid (`python -m repro_torch.analysis.lint --grid quick`) on
      fake CUDA tensors must report no new finding against the port's
@@ -220,7 +221,27 @@ Phases, each asserting, none caught:
      ms beside the 16 B/value bound; (e) the dry run's multi mesh
      (pod=2, data=16, model=16) on fake CUDA tensors over a fake group of
      512 ranks for MULTI_CELLS: memory_allocated unmoved, one rank's
-     argument bytes beside the global. Prints the phase's seconds.
+     argument bytes beside the global. Prints the phase's seconds;
+  13. the reference's meshes, after phase 12: (a) mamba2-2.7b at full
+     width (2.7 B parameters, random bf16 weights from seed 0) with phase
+     11a's options and batches, SHARD_TRAIN_STEPS steps unsharded, then
+     the same through make_train_step(cfg, opts, mesh) on a world-size-1
+     NCCL group and a (data=1, model=1) mesh under
+     set_sync_debug_mode("error"), as 12b: losses within TRAIN_LOSS_ATOL
+     (the log says whether bitwise), the loss falls, step ms in turns,
+     peak memory against 80 GB; on one rank no leaf is held stacked (the
+     phase asserts it, and that the single production mesh stacks three);
+     (b) the dry run's new cells (MESH_DRY_CELLS: mamba2-2.7b train_4k on
+     single and multi, the EMVS mesh step's emvs_rt and emvs_seg on both
+     meshes with and without int16_votes, qwen3-8b decode_32k on single)
+     on fake CUDA tensors over fake groups of 256 and 512 ranks, each in a
+     process of its own, all started with 12e's at 12b's checkpoint:
+     memory_allocated unmoved, one rank's argument (and parameter) bytes
+     beside the global, mamba2's parameter bytes a rank the sum of each
+     leaf's bytes over its spec's mesh axes, each trace's seconds;
+     (c) phase 4f's make_emvs_step again with
+     vote_dtype=torch.int16: dsi, depth, mask and confidence bitwise the
+     int32 run's. Prints the phase's seconds.
 
 At the end it prints, each on a line of its own: one JSON object for the
 kernels (all three; flash_attention's launches count phases 7 and 10's
@@ -332,6 +353,13 @@ SHARD_TURNS = 2  # rounds of (unsharded, sharded, sharded, unsharded) timed
 # 12e: the dry run's multi mesh on fake CUDA tensors over a fake group of 512
 MULTI_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"),
                ("deepseek-moe-16b", "train_4k"), ("jamba-1.5-large-398b", "long_500k"))
+# phase 13: the dry run's new cells on the reference's meshes (arch, cell,
+# mesh, --opts), each over a fake group in a process of its own
+MESH_DRY_CELLS = (
+    (SSM_ARCH, "train_4k", "single", ""), (SSM_ARCH, "train_4k", "multi", ""),
+    *(("eventor-davis240", cell, mesh, opts) for cell in ("emvs_rt", "emvs_seg")
+      for mesh in ("single", "multi") for opts in ("", "int16_votes")),
+    (LM_ARCH, "decode_32k", "single", ""))
 GRAPH_CALLS = 20  # calls captured in one CUDA graph for a device time
 PROFILER_TRACES = 3  # traces of a profiler cross-check that may return no records
 # launches in one profiled prefill of bucket 512 on an H100, in every trace
@@ -1763,16 +1791,19 @@ def sharded_prefill_phase(dev, card: str, mesh) -> dict:
     return out
 
 
-def sharded_train_phase(dev, card: str, mesh, before_checkpoint=None) -> dict:
-    """Phase 12b: stablelm-3b at full width with phase 11a's options,
-    weights (seed 0) and TokenStream batches: SHARD_TRAIN_STEPS unsharded
-    steps, then the same from a fresh state placed by `state_specs` through
-    make_train_step(cfg, opts, mesh) under set_sync_debug_mode("error"):
-    every loss within TRAIN_LOSS_ATOL (bitwise expected); step ms in turns
-    (the placed state shares the plain one's storage on one rank); the
-    sharded state saved and restored with `shardings=` bitwise.
-    `before_checkpoint` is called before the save (the checkpoint's disk
-    time hosts 12e's traces)."""
+def sharded_train_phase(dev, card: str, mesh, before_checkpoint=None, *,
+                        arch: str = TRAIN_ARCH, label: str = "12b",
+                        checkpoint: bool = True) -> dict:
+    """Phase 12b (13a with `arch` mamba2-2.7b and no checkpoint): `arch` at
+    full width with phase 11a's options, weights (seed 0) and TokenStream
+    batches: SHARD_TRAIN_STEPS unsharded steps, then the same from a fresh
+    state placed by `state_specs` through make_train_step(cfg, opts, mesh)
+    under set_sync_debug_mode("error"): every loss within TRAIN_LOSS_ATOL
+    (bitwise expected) and the last below the first; step ms in turns (the
+    placed state shares the plain one's storage on one rank), peak memory;
+    with `checkpoint`, the sharded state saved and restored with
+    `shardings=` bitwise. `before_checkpoint` is called before the save
+    (the checkpoint's disk time hosts 12e's traces)."""
     import tempfile
 
     import torch
@@ -1780,6 +1811,7 @@ def sharded_train_phase(dev, card: str, mesh, before_checkpoint=None) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.roofline import train_step_bound
     from repro_torch.training import checkpoint as ckpt
     from repro_torch.training.data import DataConfig, TokenStream
     from repro_torch.training.optimizer import AdamWConfig
@@ -1787,7 +1819,8 @@ def sharded_train_phase(dev, card: str, mesh, before_checkpoint=None) -> dict:
                                                  place_state, state_specs)
 
     t_phase = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(arch)
     n_steps = TRAIN_WARM_STEPS + TRAIN_TIMED_STEPS
     opts = TrainOptions(microbatches=TRAIN_MICROBATCHES, remat=True, param_dtype=torch.bfloat16,
                         opt=AdamWConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARM_STEPS,
@@ -1823,21 +1856,31 @@ def sharded_train_phase(dev, card: str, mesh, before_checkpoint=None) -> dict:
         torch.cuda.set_sync_debug_mode(0)
     losses_s = [float(x) for x in losses_s]
     gaps = [abs(a - b) for a, b in zip(losses_s, losses_u)]
-    log(f"12b {cfg.name} losses, unsharded {losses_u}, sharded {losses_s}: "
+    log(f"{label} {cfg.name} losses, unsharded {losses_u}, sharded {losses_s}: "
         + ("bitwise equal" if losses_s == losses_u else f"max gap {max(gaps):g}")
         + f" (limit {TRAIN_LOSS_ATOL:g}); the sharded steps ran under "
         "set_sync_debug_mode('error')")
     assert max(gaps) <= TRAIN_LOSS_ATOL, (losses_u, losses_s)
+    assert losses_u[-1] < losses_u[0] and losses_s[-1] < losses_s[0], (losses_u, losses_s)
     shares = all(a.to_local().data_ptr() == b.data_ptr() for a, b in
                  zip(pytree.tree_leaves(placed.params), pytree.tree_leaves(state.params)))
     assert shares, "the placed state does not share the plain state's storage"
     rest = iter(batches[SHARD_TRAIN_STEPS:])
     ms = turns({"unsharded": lambda: plain_step(state, next(rest)),
                 "sharded": lambda: step(placed, next(rest))})
-    log(f"[{card}] 12b {cfg.name} train step ({TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
-        f"{TRAIN_MICROBATCHES} microbatches), in turns: unsharded {ms['unsharded']:.2f} ms, "
-        f"sharded {ms['sharded']:.2f} ms ({ms['sharded'] / ms['unsharded']:.3f}x)")
-    out = {"losses": losses_s, "step_ms": ms}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    n_params = sum(t.numel() for t in pytree.tree_leaves(state.params))
+    bound, bound_by = train_step_bound(n_params, TRAIN_BATCH * TRAIN_SEQ, remat=True)
+    log(f"[{card}] {label} {cfg.name} ({n_params / 1e9:.3f} B parameters) train step "
+        f"({TRAIN_BATCH} x {TRAIN_SEQ} tokens, {TRAIN_MICROBATCHES} microbatches), in turns: "
+        f"unsharded {ms['unsharded']:.2f} ms, sharded {ms['sharded']:.2f} ms "
+        f"({ms['sharded'] / ms['unsharded']:.3f}x); bound {bound:.2f} ms ({bound_by}); "
+        f"peak memory {peak:.2f} GB of 80")
+    out = {"losses": losses_s, "losses_unsharded": losses_u, "step_ms": ms, "peak_gb": peak,
+           "bound_ms": bound, "n_params": n_params}
+    if not checkpoint:
+        log(f"[{card}] phase {label}: {time.perf_counter() - t_phase:.1f} s")
+        return out
     if before_checkpoint is not None:
         before_checkpoint()
     t0 = time.perf_counter()
@@ -1955,49 +1998,56 @@ def compression_phase(dev, card: str) -> dict:
     return {"ms": ms, "bound_ms": bound, "values": n}
 
 
-def multi_dry_cell(arch: str, cell: str) -> int:
-    """One 12e cell (`python3 chip_smoke.py --multi-dry-cell ARCH CELL`):
-    the dry run's multi mesh on fake CUDA tensors over a fake group of 512
-    ranks; nothing allocated on the card; the record as the last line."""
+def dry_cell(arch: str, cell: str, mesh: str, opts: str) -> int:
+    """One dry-run cell (`python3 chip_smoke.py --dry-cell ARCH CELL MESH
+    OPTS`, OPTS comma-separated or "-"): the dry run on `mesh` on fake
+    CUDA tensors (the production meshes over a fake group of 256 or 512
+    ranks); nothing allocated on the card; the record as the last line."""
     import torch
 
     from repro_torch.launch import dryrun
 
     before = torch.cuda.memory_allocated()
-    rec = dryrun.run_cell(arch, cell, "multi", device="cuda")
+    flags = frozenset(x for x in opts.split(",") if x and x != "-")
+    rec = dryrun.run_cell(arch, cell, mesh, device="cuda", opt_flags=flags)
     assert "skipped" not in rec, rec
-    assert torch.cuda.memory_allocated() == before, "the multi dry run allocated"
+    assert torch.cuda.memory_allocated() == before, f"the {mesh} dry run allocated"
     print(json.dumps(rec, default=str))
     return 0
 
 
-def start_multi_dryruns() -> list:
-    """12e's cells, each in a process of its own, all started together."""
-    return [(arch, cell, time.perf_counter(), subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--multi-dry-cell", arch, cell],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for arch, cell in MULTI_CELLS]
+def start_dryruns(cells) -> list:
+    """Dry-run cells ((arch, cell, mesh, opts) each), each in a process of
+    its own, all started together."""
+    return [(arch, cell, mesh, opts, time.perf_counter(), subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dry-cell", arch, cell, mesh,
+         opts or "-"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for arch, cell, mesh, opts in cells]
 
 
-def finish_multi_dryruns(card: str, procs: list) -> list:
-    """Wait for 12e's processes (killing the rest if one fails) and log
-    each record: one rank's argument bytes beside the global."""
+def finish_dryruns(card: str, label: str, procs: list) -> list:
+    """Wait for the dry-run processes (killing the rest if one fails) and
+    log each record: one rank's argument bytes beside the global."""
     recs = []
     try:
-        for arch, cell, t0, proc in procs:
+        for arch, cell, mesh, opts, t0, proc in procs:
             out, err = proc.communicate(timeout=900)
-            assert proc.returncode == 0, f"12e {arch} {cell} failed:\n{err[-4000:]}"
+            assert proc.returncode == 0, f"{label} {arch} {cell} {mesh} failed:\n{err[-4000:]}"
             rec = json.loads(out.strip().splitlines()[-1])
             mem = rec["memory"]
-            log(f"12e dry run {arch} {cell} on the multi mesh ({rec['devices']} ranks, fake "
-                f"CUDA tensors, memory_allocated unmoved): done {time.perf_counter() - t0:.1f} s "
-                f"after its start, traced in {rec['trace_s']} s; argument bytes "
-                f"{mem['argument_bytes'] / 1e9:.3f} GB a rank of "
-                f"{mem['argument_bytes_global'] / 1e9:.1f} GB in all, peak temporary "
-                f"{mem['peak_temp_bytes'] / 1e9:.2f} GB a rank; "
+            log(f"{label} dry run {arch} {cell} on the {mesh} mesh"
+                + (f" --opts {opts}" if opts else "")
+                + f" ({rec['devices']} ranks, fake CUDA tensors, memory_allocated unmoved): "
+                f"done {time.perf_counter() - t0:.1f} s after its start, traced in "
+                f"{rec['trace_s']} s; argument bytes {mem['argument_bytes']:,} a rank of "
+                f"{mem['argument_bytes_global']:,} in all"
+                + (f" (parameters {mem['param_bytes']:,} a rank of "
+                   f"{mem['param_bytes_global']:,})" if "param_bytes" in mem else "")
+                + f", peak temporary {mem['peak_temp_bytes'] / 1e9:.3f} GB a rank; "
                 f"{rec['roofline']['flops']:.3g} FLOPs a rank; collectives "
                 f"{rec['roofline']['collectives']['counts']}"
-                + (f"; {rec['microbatches']} microbatches" if rec.get("microbatches") else ""))
+                + (f"; {rec['microbatches']} microbatches" if rec.get("microbatches") else "")
+                + (f"; {rec['emvs_votes']} votes" if rec.get("emvs_votes") else ""))
             recs.append(rec)
     finally:
         for *_, proc in procs:
@@ -2009,9 +2059,11 @@ def finish_multi_dryruns(card: str, procs: list) -> list:
 
 def mesh_phase(dev, card: str) -> dict:
     """Phase 12 (see the module docstring): 12a-12d over a world-size-1
-    NCCL group and a (data=1, model=1) mesh; 12e's cells, each over a fake
-    group in a process of its own, run during 12b's checkpoint and 12c-12d
-    (their own clocks are the host's; 12c and 12d time the card)."""
+    NCCL group and a (data=1, model=1) mesh; 12e's cells and phase 13b's,
+    each over a fake group in a process of its own, start at 12b's
+    checkpoint and run during it and 12c-12d (their own clocks are the
+    host's; 12c and 12d time the card). 13b's processes are returned
+    unfinished, under "13b"."""
     import torch
 
     from repro_torch.distributed.emvs import local_process_group
@@ -2025,10 +2077,14 @@ def mesh_phase(dev, card: str) -> dict:
         out["12a"] = sharded_prefill_phase(dev, card, mesh)
         gc.collect()
         torch.cuda.empty_cache()
-        procs = []
+        procs, later = [], []
+
+        def start():
+            procs.extend(start_dryruns([(arch, cell, "multi", "") for arch, cell in MULTI_CELLS]))
+            later.extend(start_dryruns(MESH_DRY_CELLS))
+
         try:
-            out["12b"] = sharded_train_phase(
-                dev, card, mesh, before_checkpoint=lambda: procs.extend(start_multi_dryruns()))
+            out["12b"] = sharded_train_phase(dev, card, mesh, before_checkpoint=start)
             gc.collect()
             torch.cuda.empty_cache()
             out["12c"] = seq_decode_phase(dev, card, mesh)
@@ -2039,12 +2095,102 @@ def mesh_phase(dev, card: str) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
         except BaseException:
-            for *_, proc in procs:
+            for *_, proc in procs + later:
                 proc.kill()
                 proc.wait()
             raise
-    out["12e"] = finish_multi_dryruns(card, procs)
+    try:
+        out["12e"] = finish_dryruns(card, "12e", procs)
+    except BaseException:
+        for *_, proc in later:
+            proc.kill()
+            proc.wait()
+        raise
+    out["13b"] = later
     log(f"[{card}] phase 12: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def rank_param_bytes(cfg, mesh_kind: str) -> int:
+    """One rank's bf16 parameter bytes on a production mesh by the port's
+    specs (which the CPU tests hold to the reference's, leaf for leaf):
+    each leaf's bytes over the sizes of the mesh axes in its spec."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+
+    axes = {"single": {"data": 16, "model": 16},
+            "multi": {"pod": 2, "data": 16, "model": 16}}[mesh_kind]
+    mesh = types.SimpleNamespace(mesh_dim_names=tuple(axes), shape=tuple(axes.values()))
+    plan = shd.ShardingPlan.for_mesh(mesh)
+    params = M.init_params(cfg, generator=None, dtype=torch.bfloat16, device="meta")
+    layout = shd.to_mesh_layout(params, shd.stacked_paths(cfg, mesh, plan))
+    specs = pytree.tree_leaves(shd.param_specs(cfg, params, mesh, plan),
+                               is_leaf=lambda x: isinstance(x, shd.P))
+    total = 0
+    for t, spec in zip(pytree.tree_leaves(layout), specs):
+        split = math.prod(axes[a] for e in spec if e is not None
+                          for a in ((e,) if isinstance(e, str) else e))
+        total += t.numel() * t.element_size() // split
+    return total
+
+
+def meshes_phase(dev, card: str, step_inputs, procs: list) -> dict:
+    """Phase 13 (see the module docstring): 13a over a world-size-1 NCCL
+    group and a (data=1, model=1) mesh; 13c on a (1, 1) mesh; then 13b's
+    records from `procs`, the processes phase 12 started at its checkpoint
+    (the longest trace may still run during 13a's turns)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.emvs import local_process_group, make_emvs_step
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    out = {}
+    torch.cuda.set_device(dev.index or 0)
+    try:
+        with local_process_group("cuda"):
+            mesh = make_host_mesh(1, 1)
+            cfg = get_config(SSM_ARCH)
+            one = shd.stacked_paths(cfg, mesh, shd.ShardingPlan.for_mesh(mesh))
+            single = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(16, 16))
+            held = shd.stacked_paths(cfg, single, shd.ShardingPlan.for_mesh(single))
+            assert not any(one) and any(held), (one, held)
+            log(f"13a {cfg.name}: on the (data=1, model=1) mesh no leaf is held stacked "
+                f"(FSDP over one rank shards nothing); on the single production mesh "
+                f"(data=16, model=16) {['/'.join(p) for p in held[0]]} are, each data rank "
+                "holding 4 of 64 rows (the CPU tests hold that layout on 4 gloo ranks)")
+            out["13a"] = sharded_train_phase(dev, card, mesh, arch=SSM_ARCH, label="13a",
+                                             checkpoint=False)
+            gc.collect()
+            torch.cuda.empty_cache()
+            cam, dsi_cfg, args, want = step_inputs
+            step_mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            got = make_emvs_step(cam, dsi_cfg, step_mesh, vote_dtype=torch.int16)(*args)
+            torch.cuda.synchronize()
+            for a, b, name in zip(got, want, ("dsi", "depth", "mask", "confidence")):
+                assert_equal(a, b, f"13c make_emvs_step, int16 votes against int32: {name}")
+            log(f"13c make_emvs_step on a (1, 1) mesh with vote_dtype=torch.int16: dsi "
+                f"{tuple(got[0].shape)} {got[0].dtype} (largest count "
+                f"{int(got[0].max())}), depth, mask and confidence bitwise the int32 run's")
+    except BaseException:
+        for *_, proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
+    out["13b"] = finish_dryruns(card, "13b", procs)
+    for rec in out["13b"]:
+        if rec["cell"] == "train_4k":
+            want = rank_param_bytes(cfg, rec["mesh"])
+            assert rec["memory"]["param_bytes"] == want, (rec["mesh"], rec["memory"], want)
+            log(f"13b {rec['arch']} train_4k on {rec['mesh']}: one rank's parameter bytes "
+                f"{want:,}, the sum of each leaf's bytes over its spec's mesh axes")
+    log(f"[{card}] phase 13: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2109,15 +2255,17 @@ def davis346_phase(card: str, scene, main_cfg, opts) -> dict:
     bitwise, float and quantized; AbsRel on the float datapath (Table 1's
     8-bit plane coordinates park off-range columns at 255, a real column
     past 256 pixels, so the quantized AbsRel is logged, not held); the
-    warm wall; B1's device time at the bucket with most segments."""
+    warm wall; B1's device time at the bucket with most segments, and its
+    plain version's (CUDA events)."""
     import torch
 
     from repro_torch.core.camera import CAMERAS
-    from repro_torch.core.dsi import DSIConfig
+    from repro_torch.core.dsi import DSIConfig, to_storage
     from repro_torch.core.pipeline import run_emvs
     from repro_torch.events.simulator import absrel, ground_truth_depth
     from repro_torch.kernels import cuda
     from repro_torch.kernels.backproject_vote.kernel import backproject_vote_cuda
+    from repro_torch.kernels.backproject_vote.ref import backproject_vote_ref
     from repro_torch.launch.roofline import sweep_bound
 
     cam = CAMERAS["davis346"]
@@ -2175,15 +2323,20 @@ def davis346_phase(card: str, scene, main_cfg, opts) -> dict:
     x0, y0 = xy0[..., 0].contiguous(), xy0[..., 1].contiguous()
     device_ms = graph_ms(lambda: backproject_vote_cuda(x0, y0, valid, phi, cx=cam.cx,
                                                        cy=cam.cy, w=w, h=h, quantized=True))
+    plain_ms = cuda_ms(lambda: to_storage(backproject_vote_ref(
+        xy0, valid, phi, cx=cam.cx, cy=cam.cy, w=w, h=h, quantize_plane_coords=True)),
+        reps=3, inner=1)
     bound, by = sweep_bound(s, c, e, nz, w, h, int(valid.sum()))
     rows = band_rows_of(w, h)
     n_bands = -(-h // rows)
     log(f"[{card}] DAVIS346 run_emvs (kernel, nearest, quantized) warm wall "
         f"{1e3 * wall:.1f} ms median of {len(walls)}; backproject_vote at {shape_note} "
         f"int16 in {n_bands} bands of {rows} rows: device {device_ms:.4f} ms (CUDA graph of "
-        f"{GRAPH_CALLS}), bound {bound:.4f} ms ({by}), bound share {bound / device_ms:.3f}")
+        f"{GRAPH_CALLS}), bound {bound:.4f} ms ({by}), bound share {bound / device_ms:.3f}; "
+        f"plain {plain_ms:.2f} ms")
     return {"device_ms": device_ms, "bound_ms": bound, "n_bands": n_bands, "wall_ms": 1e3 * wall,
-            "absrel": absrels, "launches": launches[True], "shape": shape_note}
+            "absrel": absrels, "launches": launches[True], "shape": shape_note,
+            "plain_ms": plain_ms}
 
 
 def paper_tables(card: str) -> dict:
@@ -2654,9 +2807,12 @@ def sharded_phase(card: str, cam, dsi_cfg, opts, events, frames, traj) -> dict:
             dsi_ref, dm_ref = process_segment(cam, dsi_cfg, seg, T_w_ref, dataclasses.replace(
                 opts, formulation="matmul", voting=voting, quantized=False,
                 median_filter=False))
+            step_args = (seg.xy, seg.valid.float(), ones, geom.H, phi)
             dsi, depth, mask, conf = make_emvs_step(cam, dsi_cfg, step_mesh, mode=voting)(
-                seg.xy, seg.valid.float(), ones, geom.H, phi)
+                *step_args)
             torch.cuda.synchronize()
+            if voting == "nearest":
+                step_inputs = (cam, dsi_cfg, step_args, (dsi, depth, mask, conf))
             err = float((dsi.float() - dsi_ref.float()).abs().max())
             flips = int((mask != dm_ref.mask).sum())
             step_errs[voting] = (err, flips)
@@ -2690,7 +2846,7 @@ def sharded_phase(card: str, cam, dsi_cfg, opts, events, frames, traj) -> dict:
         f"{1e3 * g['target_latency_s']:.3f} ms: pass" for g in gates))
     assert calibrate.main([STREAM_COST_TABLE]) == 0
     log(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches}
+    return {"launches": launches, "step_inputs": step_inputs}
 
 
 def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
@@ -2776,7 +2932,7 @@ def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
     recs = {}
     for arch, cell in (("eventor-davis240", "emvs_rt"), ("eventor-davis240", "emvs_seg"),
                        ("qwen3-8b", "prefill_32k"), ("qwen3-8b", "decode_32k")):
-        rec = dryrun.run_cell(arch, cell, "single")
+        rec = dryrun.run_cell(arch, cell, "card")
         assert "skipped" not in rec and rec["device"] == "cuda", rec
         recs[cell] = rec
         log(f"dry run {fmt_row(rec)} kernels "
@@ -2852,9 +3008,9 @@ def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
 def main() -> int:
     import torch
 
-    if len(sys.argv) == 4 and sys.argv[1] == "--multi-dry-cell" and torch.cuda.is_available():
+    if len(sys.argv) == 6 and sys.argv[1] == "--dry-cell" and torch.cuda.is_available():
         sys.path.insert(0, SRC)
-        return multi_dry_cell(sys.argv[2], sys.argv[3])
+        return dry_cell(*sys.argv[2:6])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -3062,8 +3218,11 @@ def main() -> int:
         f"{trained['step_ms']:.2f} ms against a {trained['bound_ms']:.2f} ms bound")
     gc.collect()
     torch.cuda.empty_cache()
-    # 12. sharding and parallelism
+    # 12. sharding and parallelism; 13. the reference's meshes
     meshed = mesh_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshes_phase(dev, card, sharded["step_inputs"], meshed["13b"])
     b3_serve = {LM_ARCH: lm["launches"]}
     b3_serve.update({arch: run["launches"] for arch, run in served.items()})
     b3_serve.update({f"{MOE_ARCH} EP {d}": c
@@ -3084,6 +3243,7 @@ def main() -> int:
          "device_ms_s1": timed["S=1"]["b1_device_ms"], "smem_bytes": smem,
          "n_bands": n_bands, "device_ms_davis346": d346["device_ms"],
          "bound_ms_davis346": d346["bound_ms"], "n_bands_davis346": d346["n_bands"],
+         "plain_ms_davis346": d346["plain_ms"],
          "bulk_copy_instructions": n_bulk,
          "launches_warm": tooling["warm_launches"]["backproject_vote"],
          "fusion_ladder": tooling["ladder"],

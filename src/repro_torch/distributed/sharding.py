@@ -18,8 +18,21 @@ spec is computed on the stacked shape ((n_sb,) + the layer's shape, path
 `blocks/<pattern position>/...`) and its leading entry dropped: FSDP's
 size test (`_add_fsdp`'s `min_size`) then answers as the reference's does
 (a (36, 4096) norm stack is sharded there; a lone (4096,) would not be).
-A rule that puts a mesh axis on the super-block dim itself has no
-per-layer counterpart and raises, naming the leaf.
+
+Where the rule plus `_add_fsdp` shard the super-block dim itself (e.g.
+mamba2-2.7b's (64, 4, 5120) `conv_x_w` on the production meshes, FSDP on:
+`P('data', None, 'model')`), a per-layer leaf cannot hold the reference's
+bytes. On such a mesh the port holds that leaf stacked, as the reference
+does: the mesh layout. `stacked_paths(cfg, mesh, plan)` names those leaves
+per pattern position (a pure function of the arch, the mesh's axes and the
+plan); `to_mesh_layout` moves them out of the per-layer dicts into
+`tree["stacks"][position]`, one (n_sb, ...) tensor each, placed by the
+reference's spec unchanged; a layer reads its row (`models/model.py`).
+Where no leaf is named (no mesh, FSDP off, or no rule takes the dim) the
+tree stays one dict per layer. `param_specs` gives the specs of the mesh
+layout, and `distribute` moves a per-layer tree into the layout of the
+specs it is given, so any tree shaped like the parameters (AdamW's m and
+v, checkpoints) follows.
 
 The spec functions read only `mesh.mesh_dim_names` and `mesh.shape`, so
 any object with those two attributes stands in for a mesh there (the
@@ -204,17 +217,132 @@ def map_with_path(tree: Any, fn, path: tuple = ()):
     return None if tree is None else fn(path, tree)
 
 
-class StackedDimSharding(ValueError):
-    """The reference's rule shards a stacked leaf's super-block dim, which
-    the port's per-layer leaf does not have (ROADMAP §C)."""
+# ---------------------------------------------------------------------------
+# The mesh layout: leaves held stacked over super-blocks
+# ---------------------------------------------------------------------------
+
+STACKS = "stacks"  # the mesh layout's key of the stacked leaves
+
+
+def _leaf_paths(tree, path: tuple = ()):
+    """(path, leaf) of each leaf of nested dicts, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _get(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _nest(items) -> dict:
+    """Nested dicts from (path, value) pairs."""
+    out: dict = {}
+    for path, v in items:
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = v
+    return out
+
+
+def _without(tree: dict, paths) -> dict:
+    """A copy of nested dicts without the leaves at `paths`."""
+    out = {}
+    for k, v in tree.items():
+        inner = [p[1:] for p in paths if p[0] == k]
+        if not inner:
+            out[k] = v
+        elif not (len(inner) == 1 and inner[0] == ()):
+            out[k] = _without(v, inner)
+    return out
+
+
+def _stacked_spec(pos: int, sub: tuple, stacked: tuple[int, ...], cfg: ArchConfig, mesh,
+                  plan: ShardingPlan) -> P:
+    """The reference's spec of the stacked leaf `blocks/<pos>/<sub>`."""
+    where = "/".join(str(p) for p in ("blocks", pos) + tuple(sub))
+    return _add_fsdp(_param_rule(where, stacked, cfg, mesh, plan), stacked, mesh, plan)
+
+
+def stacked_paths(cfg: ArchConfig, mesh, plan: ShardingPlan) -> tuple[tuple[tuple, ...], ...]:
+    """Per pattern position, the paths within a layer's dict (e.g.
+    ("mamba", "conv_x_w")) of the leaves the port holds stacked on `mesh`:
+    those whose reference spec shards the super-block dim. Every entry is
+    empty where no rule takes that dim."""
+    from repro_torch.models.model import layer_shapes
+
+    n_sb = cfg.n_superblocks()
+    return tuple(
+        tuple(sub for sub, x in _leaf_paths(layer)
+              if (_stacked_spec(pos, sub, (n_sb,) + tuple(x.shape), cfg, mesh, plan)
+                  + (None,))[0] is not None)
+        for pos, layer in enumerate(layer_shapes(cfg)))
+
+
+def layout_of(tree) -> tuple[tuple[tuple, ...], ...] | None:
+    """The stacked paths of a tree in the mesh layout (read from its
+    `stacks`), or None for a tree of one dict per layer."""
+    if not isinstance(tree, dict) or STACKS not in tree:
+        return None
+    return tuple(tuple(p for p, _ in _leaf_paths(s)) for s in tree[STACKS])
+
+
+def to_mesh_layout(tree: dict, paths, stack=torch.stack) -> dict:
+    """`tree` (the parameters, or any tree shaped like them, one dict per
+    layer) with the leaves `paths` names (`stacked_paths`) taken out of
+    every layer's dict and stacked over super-blocks by `stack` (a list of
+    leaves, super-block order, -> one leaf), under `tree["stacks"]`, one
+    dict per pattern position. A tree already in a mesh layout, or `paths`
+    naming nothing, comes back as it is."""
+    if STACKS in tree or not any(paths):
+        return tree
+    blocks, n = tree["blocks"], len(paths)
+    stacks = [_nest((sub, stack([_get(blocks[sb + pos], sub)
+                                 for sb in range(0, len(blocks), n)])) for sub in subs)
+              for pos, subs in enumerate(paths)]
+    out = {k: [_without(layer, paths[i % n]) for i, layer in enumerate(blocks)]
+           if k == "blocks" else v for k, v in tree.items()}
+    out[STACKS] = stacks
+    return out
+
+
+def layer_rows(stacks: list, n_sb: int) -> list[dict]:
+    """Every layer's rows of `stacks` (the mesh layout's stacked leaves,
+    one dict per pattern position), in layer order: each stack split into
+    its super-blocks' rows by one `unbind` (its gradient stacks them
+    back)."""
+    rows = [[(sub, t.unbind(0)) for sub, t in _leaf_paths(s)] for s in stacks]
+    return [_nest((sub, r[sb]) for sub, r in rows[pos])
+            for sb in range(n_sb) for pos in range(len(stacks))]
+
+
+def with_rows(layer: dict, rows: dict) -> dict:
+    """A layer's dict with its stacked leaves' rows put back."""
+    if not rows:
+        return layer
+    out = dict(layer)
+    for k, v in rows.items():
+        out[k] = with_rows(out.get(k, {}), v) if isinstance(v, dict) else v
+    return out
+
+
+def _stack_shapes(leaves) -> Tensor:
+    """The stack of `leaves` as a meta tensor: its shape only."""
+    return torch.empty((len(leaves),) + tuple(leaves[0].shape), device="meta")
 
 
 def _per_layer(stacked: P, ndim: int, what: str) -> P:
     """A stacked leaf's spec without its leading super-block entry."""
     entries = list(stacked) + [None] * (ndim + 1 - len(stacked))
     if entries[0] is not None:
-        raise StackedDimSharding(f"{what}: the rule shards the super-block dim over "
-                                 f"{entries[0]!r}, which a per-layer leaf does not have")
+        raise ValueError(f"{what}: the reference's spec shards the super-block dim over "
+                         f"{entries[0]!r}; on this mesh the leaf is held stacked "
+                         "(`stacked_paths`, `to_mesh_layout`)")
     return P(*entries[1:])
 
 
@@ -223,21 +351,28 @@ def param_spec(path: tuple, shape: tuple[int, ...], cfg: ArchConfig, mesh,
     """The spec of one leaf of the port's parameter tree, at `path` (keys
     and list indices, e.g. ("blocks", 3, "attn", "wq", "w")): the
     reference's spec of the stacked leaf (`blocks/<pattern position>/...`,
-    shape (n_sb,) + shape) without its super-block entry."""
+    shape (n_sb,) + shape) without its super-block entry; for a stacked
+    leaf of the mesh layout (("stacks", <pattern position>, ...), its
+    whole stacked shape), the reference's spec unchanged."""
     shape = tuple(shape)
+    if path[0] == STACKS:
+        return _stacked_spec(path[1], path[2:], shape, cfg, mesh, plan)
     if path[0] == "blocks":
-        stacked = (cfg.n_superblocks(),) + shape
-        where = "/".join(str(p) for p in ("blocks", path[1] % len(cfg.pattern())) + path[2:])
-        spec = _add_fsdp(_param_rule(where, stacked, cfg, mesh, plan), stacked, mesh, plan)
-        return _per_layer(spec, len(shape), f"parameter {where}")
+        pos = path[1] % len(cfg.pattern())
+        spec = _stacked_spec(pos, path[2:], (cfg.n_superblocks(),) + shape, cfg, mesh, plan)
+        return _per_layer(spec, len(shape), "parameter " + "/".join(
+            str(p) for p in ("blocks", pos) + path[2:]))
     where = "/".join(str(p) for p in path)
     return _add_fsdp(_param_rule(where, shape, cfg, mesh, plan), shape, mesh, plan)
 
 
 def param_specs(cfg: ArchConfig, params: Any, mesh, plan: ShardingPlan) -> Any:
-    """A `P` per leaf of the port's parameter tree (tensors or anything with
-    a `.shape`; one dict per layer under "blocks"): `param_spec`."""
-    return map_with_path(params, lambda path, x: param_spec(path, tuple(x.shape), cfg, mesh, plan))
+    """A `P` per leaf of the port's parameter tree in its layout on `mesh`
+    (tensors or anything with a `.shape`): `param_spec` of each leaf of the
+    mesh layout, the per-layer tree moved into it first (shapes only) where
+    `stacked_paths` names a leaf."""
+    tree = to_mesh_layout(params, stacked_paths(cfg, mesh, plan), stack=_stack_shapes)
+    return map_with_path(tree, lambda path, x: param_spec(path, tuple(x.shape), cfg, mesh, plan))
 
 
 # ---------------------------------------------------------------------------
@@ -360,16 +495,28 @@ def tree_shardings(spec_tree: Any, mesh) -> Any:
     return spec_tree
 
 
-def distribute(tree: Any, spec_tree: Any, mesh) -> Any:
+def distribute(tree: Any, spec_tree: Any, mesh, *, src_data_rank: int | None = 0) -> Any:
     """Each tensor of `tree` placed on `mesh` by its spec: a DTensor whose
     local shard is this rank's part (every rank passes the full tensor;
-    `distribute_tensor` keeps rank 0's values)."""
+    `distribute_tensor` keeps the values of rank `src_data_rank`, or with
+    None each rank's own, which moves nothing). A tree of one dict per
+    layer is moved into the specs' mesh layout first (`in_layout_of`)."""
     def place(t, spec):
         if t is None:
             return None
-        return distribute_tensor(t.detach(), mesh, to_placements(spec, mesh))
+        return distribute_tensor(t.detach(), mesh, to_placements(spec, mesh),
+                                 src_data_rank=src_data_rank)
 
-    return _zip_map(tree, spec_tree, place)
+    return _zip_map(in_layout_of(tree, spec_tree), spec_tree, place)
+
+
+def in_layout_of(tree: Any, like: Any) -> Any:
+    """`tree` moved into the mesh layout of `like` (specs, shardings or
+    tensors), where `like` is in one and `tree` is not."""
+    paths = layout_of(like)
+    if paths is None or layout_of(tree) is not None:
+        return tree
+    return to_mesh_layout(tree, paths)
 
 
 def _zip_map(tree: Any, other: Any, fn):

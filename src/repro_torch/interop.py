@@ -158,21 +158,32 @@ def lm_params_stacked(params: Mapping[str, Any], cfg: ArchConfig) -> dict:
     """The inverse of `lm_params_from_numpy`, in tensors: the port's
     per-layer `blocks` list regrouped as the reference's tuple over pattern
     positions, each leaf stacked over super-blocks on a new leading axis
-    (on the leaves' device, in their dtypes). Other entries are kept. Any
-    tree shaped like the parameters converts (AdamW's m and v too)."""
+    (on the leaves' device, in their dtypes); the leaves a mesh layout
+    holds stacked (`params["stacks"]`, `distributed/sharding.py`) go in as
+    they are. Other entries are kept. Any tree shaped like the parameters
+    converts (AdamW's m and v too)."""
     pattern = cfg.pattern()
     n, n_sb = len(pattern), cfg.n_superblocks()
     blocks = params["blocks"]
     if len(blocks) != n * n_sb:
         raise ValueError(f"{len(blocks)} layers for {n_sb} super-blocks of {pattern}")
+    held = params.get("stacks") or [{}] * n
 
-    def stack(layers):
-        if isinstance(layers[0], Mapping):
-            return {k: stack([layer[k] for layer in layers]) for k in layers[0]}
-        return torch.stack([t.detach() for t in layers])
+    def detached(tree):
+        if isinstance(tree, Mapping):
+            return {k: detached(v) for k, v in tree.items()}
+        return tree.detach()
 
-    stacked = tuple(stack([blocks[sb * n + i] for sb in range(n_sb)]) for i in range(n))
-    return {k: stacked if k == "blocks" else v for k, v in params.items()}
+    def stack(layers, held):
+        if not isinstance(layers[0], Mapping):
+            return torch.stack([t.detach() for t in layers])
+        out = {k: stack([layer[k] for layer in layers], held.get(k, {})) for k in layers[0]}
+        out.update({k: detached(v) for k, v in held.items() if k not in out})
+        return out
+
+    stacked = tuple(stack([blocks[sb * n + i] for sb in range(n_sb)], held[i])
+                    for i in range(n))
+    return {k: stacked if k == "blocks" else v for k, v in params.items() if k != "stacks"}
 
 
 def lm_params_to_numpy(params: Mapping[str, Any], cfg: ArchConfig) -> dict:

@@ -1,7 +1,7 @@
 """Dry run: trace every (arch x cell) step on fake tensors and record its
 memory, FLOPs, bytes and roofline, without allocating or launching.
 
-    python -m repro_torch.launch.dryrun --arch qwen3-8b --cell prefill_32k [--device cpu]
+    python -m repro_torch.launch.dryrun --arch qwen3-8b --cell prefill_32k [--mesh card]
     python -m repro_torch.launch.dryrun --all [--mesh both] [--out results/dryrun_torch]
 
 Counterpart of `repro.launch.dryrun`, which lowers and compiles each cell
@@ -11,34 +11,44 @@ under `launch/graph_analysis.py`, whose counts feed `launch/roofline.py`.
 On the card the step reaches the hand-written kernels as one operation
 each (their fake implementations), on the CPU their plain versions.
 
-Meshes: "single" is one card, and its train cells trace the unsharded
-`make_train_step`. "multi" is the reference's (pod=2, data=16, model=16)
-over a fake process group of 512 ranks (`torch.testing._internal.
-distributed.fake_pg`; the trace runs as rank 0 and no collective moves
-data): parameters and inputs are DTensors placed by the reference's
-serving policy (FSDP only where the model-parallel copy passes 8 GB; EP
-where the experts divide `model`; `SeqShard` for the hybrid `long_500k`;
-`--opts pad_heads` pads heads to `model`), and train cells trace
-`training.train_step.lower_train_step` with the reference's microbatch
-choice. DTensor runs each operation on rank 0's shards, so a record's
-FLOPs, bytes and memory are one rank's; `devices` is 512 and
-`memory.argument_bytes_global` holds the unsharded argument bytes.
+Meshes (`--mesh`, default "single" as in the reference; "both" is single
+and multi):
+  * "single" is the reference's (data=16, model=16) and "multi" its
+    (pod=2, data=16, model=16), each over a fake process group of 256 or
+    512 ranks (`torch.testing._internal.distributed.fake_pg`; the trace
+    runs as rank 0 and no collective moves data). Parameters and inputs
+    are DTensors placed by the reference's serving policy (FSDP only
+    where the model-parallel copy passes 8 GB; EP where the experts
+    divide `model`; `SeqShard` for the hybrid `long_500k`; `--opts
+    pad_heads` pads heads to `model`), and train cells trace
+    `training.train_step.lower_train_step` with the reference's
+    microbatch choice (FSDP on, so mamba2-2.7b's stacked leaves are held
+    in the mesh layout of `distributed/sharding.py`). The EMVS cells trace
+    `distributed.emvs.make_emvs_step` as the reference lowers it: 256
+    planes; `emvs_rt` one 1024-event packet split into `data` frames,
+    `emvs_seg` 256 frames of 1024 events; on multi two segments over
+    `pod`; `--opts int16_votes` narrows the votes to int16 on the link.
+    DTensor runs each operation on rank 0's shards, so a record's FLOPs,
+    bytes and memory are one rank's; `devices` is 256 or 512 and
+    `memory.argument_bytes_global` holds the unsharded argument bytes.
+  * "card" is one card, unsharded: the train cells trace the unsharded
+    `make_train_step`, the EMVS cells the batched sweep (the main path's
+    options, 256 planes), which reaches B1 and B2. It answers the port's
+    own question: does the cell fit one H100, and what does B1 count.
 
-The record keeps the reference's keys: arch, cell, mesh, devices, memory
-(argument, output and peak temporary bytes), roofline and, for EMVS,
-`emvs_votes`; `trace_s` takes the place of the lowering and compile
-times, and `kernels` lists each hand-written kernel's call with its
-declared bytes and FLOPs.
+The record keeps the reference's keys: arch, cell, mesh, devices, opts
+(production meshes), memory (argument, output and peak temporary bytes;
+for LM cells also the parameters' bytes, one rank's and global),
+roofline and, for EMVS, `emvs_votes`; `trace_s` takes the place of the
+lowering and compile times, and `kernels` lists each hand-written
+kernel's call with its declared bytes and FLOPs.
 
-Cells: `eventor-davis240` runs `emvs_rt` and `emvs_seg` through the
-batched sweep (the main path's options, 256 planes) on the single mesh
-(the reference's EMVS mesh program is `distributed.emvs.make_emvs_step`,
-which the port's dry run does not trace on the fake group); every LM
-arch runs `train_4k`, `prefill_32k` and `decode_32k`, and the SSM and
-hybrid archs `long_500k` (a decode step at 524,288 tokens of context).
-Skipped cells carry the reference's own skip reason. A cell whose step
-reaches an operation that fake tensors cannot run (no meta kernel) is
-recorded as skipped, naming the operation.
+Cells: every LM arch runs `train_4k`, `prefill_32k` and `decode_32k`, and
+the SSM and hybrid archs `long_500k` (a decode step at 524,288 tokens of
+context); `eventor-davis240` runs `emvs_rt` and `emvs_seg`. Skipped cells
+carry the reference's own skip reason. A cell whose step reaches an
+operation that fake tensors cannot run (no meta kernel) is recorded as
+skipped, naming the operation.
 
 `--all` writes one JSON per cell into `--out`, tracing each cell in a
 subprocess of its own (a skipped cell's record is written directly).
@@ -79,21 +89,13 @@ ARCHS = [
     "qwen3-8b", "starcoder2-15b", "qwen1.5-4b", "jamba-1.5-large-398b",
     "llava-next-mistral-7b", "mamba2-2.7b", "eventor-davis240",
 ]
-MESHES = ("single", "multi")
+MESHES = ("card", "single", "multi")
 DEFAULT_OUT = "results/dryrun_torch"
+# ranks of the fake group each production mesh is built over
+PRODUCTION_RANKS = {"single": 256, "multi": 512}
 
 
 MAX_TOKENS_PER_DEV_MB = 16384  # microbatch sizing target (activation memory)
-MULTI_RANKS = 512
-
-
-def port_skip(cfg: ArchConfig, cell: ShapeCell, mesh_kind: str) -> str | None:
-    """Why the port cannot trace this cell, or None: the EMVS cells on the
-    multi mesh (the reference's mesh program there is `make_emvs_step`)."""
-    if mesh_kind == "multi" and cfg.family == "emvs":
-        return ("the EMVS mesh step (`distributed.emvs.make_emvs_step`) is not "
-                "traced on the fake 512-rank group")
-    return None
 
 
 def _pick_microbatches(cell: ShapeCell, batch_shards: int) -> int:
@@ -123,7 +125,7 @@ def _tree_bytes(tree, local: bool = True) -> int:
 
 
 @contextlib.contextmanager
-def fake_process_group(world: int = MULTI_RANKS):
+def fake_process_group(world: int):
     """A fake default process group of `world` ranks (this process is rank
     0; collectives move nothing), destroyed on exit. An initialized group
     is used as it is."""
@@ -207,15 +209,46 @@ def _lm_step(cfg: ArchConfig, cell: ShapeCell, dev: torch.device, fake):
     return step, (params, state, specs["tokens"], front), {}
 
 
-def _multi_trace(cfg: ArchConfig, cell: ShapeCell, mesh, dev: torch.device, fake,
-                 opt_flags: frozenset):
-    """The reference's `lower_cell` on the multi mesh: the cell's step over
-    DTensors placed by its policy, traced; returns (`analyze`'s result,
-    the step's arguments, extra record entries)."""
+def _emvs_mesh_trace(cell: ShapeCell, mesh, dev: torch.device, fake, opt_flags: frozenset):
+    """The reference's `_lower_emvs`: `make_emvs_step` over the mesh (two
+    segments over `pod` on the multi mesh), traced on its global inputs;
+    returns (`analyze`'s result, the step's arguments, extra entries)."""
+    from repro_torch.core.camera import CameraModel
+    from repro_torch.core.dsi import DSIConfig
+    from repro_torch.distributed.emvs import emvs_input_specs, make_emvs_step
+
+    cam = CameraModel()
+    dsi_cfg = DSIConfig.for_camera(cam, num_planes=EMVS_CELL_PLANES)
+    multi = "pod" in mesh.mesh_dim_names
+    data = shd.axis_sizes(mesh)["data"]
+    if cell.name == "emvs_rt":
+        # one 1024-event packet, split into pose-identical slices so the
+        # event axis shards over `data` (votes are additive: exact)
+        frames, events = data, cell.seq_len // data
+    else:
+        frames, events = cell.global_batch, cell.seq_len
+    segments = 2 if multi else None
+    step = make_emvs_step(cam, dsi_cfg, mesh, pod_axis="pod" if multi else None,
+                          vote_dtype=torch.int16 if "int16_votes" in opt_flags else torch.int32)
+    specs = emvs_input_specs(dsi_cfg, frames=frames, events=events, segments=segments)
+    with fake:
+        args = tuple(torch.empty(v.shape, dtype=v.dtype, device=dev) for v in specs.values())
+    n_votes = (segments or 1) * frames * events * dsi_cfg.num_planes
+    return (ga.analyze(step, *args, fake=fake), args,
+            {"emvs_votes": n_votes, "model_flops": 5.0 * n_votes})
+
+
+def _mesh_trace(cfg: ArchConfig, cell: ShapeCell, mesh, dev: torch.device, fake,
+                opt_flags: frozenset):
+    """The reference's `lower_cell` on a production mesh: the cell's step
+    over DTensors placed by its policy (EMVS: `_emvs_mesh_trace`), traced;
+    returns (`analyze`'s result, the step's arguments, extra entries)."""
     from repro_torch.distributed.expert_parallel import EPShard
     from repro_torch.distributed.flash_decode import SeqShard
     from repro_torch.models import model as M
 
+    if cfg.family == "emvs":
+        return _emvs_mesh_trace(cell, mesh, dev, fake, opt_flags)
     if "pad_heads" in opt_flags and cfg.n_heads:
         cfg = cfg.pad_heads_to(shd.axis_sizes(mesh).get("model", 1))
     specs = input_specs(cfg, cell, device=dev, fake_mode=fake)
@@ -251,7 +284,8 @@ def _multi_trace(cfg: ArchConfig, cell: ShapeCell, mesh, dev: torch.device, fake
     seq = (SeqShard(mesh) if cell.name == "long_500k" and cfg.family == "hybrid" else None)
     ctx = M.ModelCtx(mesh=mesh, batch_axes=act_batch_axes, ep_shard=ep, seq_shard=seq)
     with fake:
-        params = shd.distribute(params, shd.param_specs(cfg, params, mesh, plan), mesh)
+        params = shd.distribute(params, shd.param_specs(cfg, params, mesh, plan), mesh,
+                                src_data_rank=None)
         inputs = {k: shd.constrain(v, mesh, shd.batch_spec(tuple(v.shape), mesh, plan))
                   for k, v in specs.items()}
     front = inputs.get("frontend_embed")
@@ -265,7 +299,8 @@ def _multi_trace(cfg: ArchConfig, cell: ShapeCell, mesh, dev: torch.device, fake
         return ga.analyze(step, *args, fake=fake), args, {}
     with fake:
         state = M.init_decode_state(cfg, cell.global_batch, cell.seq_len, ctx=ctx, device=dev)
-        state = shd.distribute(state, shd.decode_state_specs(cfg, state, mesh, plan), mesh)
+        state = shd.distribute(state, shd.decode_state_specs(cfg, state, mesh, plan), mesh,
+                               src_data_rank=None)
 
     def step(params, state, tokens, front):
         logits, _ = M.decode_step(params, state, tokens, cell.seq_len - 1, cfg,
@@ -279,26 +314,30 @@ def _multi_trace(cfg: ArchConfig, cell: ShapeCell, mesh, dev: torch.device, fake
 def run_cell(arch: str, cell_name: str, mesh_kind: str = "single", *,
              device=None, opt_flags: frozenset = frozenset()) -> dict:
     """Trace one cell on fake tensors of `device` (the card unless "cpu")
-    and return its record (see the module docstring)."""
+    on `mesh_kind` ("card", "single" or "multi") and return its record
+    (see the module docstring)."""
     cfg = get_config(arch)
     table = EMVS_CELLS if cfg.family == "emvs" else LM_CELLS
     cell = table[cell_name]
     rec: dict = {"arch": arch, "cell": cell_name, "mesh": mesh_kind}
-    if mesh_kind == "multi":
+    world = PRODUCTION_RANKS.get(mesh_kind)
+    if world is None and mesh_kind != "card":
+        raise ValueError(f"mesh {mesh_kind!r}: one of {MESHES}")
+    if world:
         rec["opts"] = sorted(opt_flags)
-    skip = cell_skipped(cfg, cell) or port_skip(cfg, cell, mesh_kind)
+    skip = cell_skipped(cfg, cell)
     if skip:
         rec["skipped"] = skip
         return rec
     dev = resolve_device(device)
-    with (fake_process_group() if mesh_kind == "multi" else contextlib.nullcontext()):
+    with (fake_process_group(world) if world else contextlib.nullcontext()):
         fake = ga.fake_mode()
         t0 = time.time()
         try:
-            if mesh_kind == "multi":
-                mesh = make_production_mesh(multi_pod=True, device_type=dev.type)
-                (out, stats, mode), args, extra = _multi_trace(cfg, cell, mesh, dev, fake,
-                                                               opt_flags)
+            if world:
+                mesh = make_production_mesh(multi_pod=mesh_kind == "multi", device_type=dev.type)
+                (out, stats, mode), args, extra = _mesh_trace(cfg, cell, mesh, dev, fake,
+                                                              opt_flags)
             else:
                 step, args, extra = (_emvs_step(cell, dev, fake) if cfg.family == "emvs"
                                      else _lm_step(cfg, cell, dev, fake))
@@ -307,23 +346,25 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str = "single", *,
             rec["skipped"] = (f"fake tensors cannot trace {exc.func}: the operation "
                               "has no meta kernel")
             return rec
-        except shd.StackedDimSharding as exc:
-            rec["skipped"] = f"{exc} (ROADMAP C5)"
-            return rec
-        n_dev = MULTI_RANKS if mesh_kind == "multi" else 1
+        n_dev = world or 1
         t1 = time.time()
         mf = extra.pop("model_flops", None)
         if mf is None:
             mf = rf.model_flops_for_cell(cfg, cell)
         roof = rf.analyze(stats, n_devices=n_dev, model_flops_global=mf)
+        memory = {"argument_bytes": _tree_bytes(args),
+                  "argument_bytes_global": _tree_bytes(args, local=False),
+                  "output_bytes": _tree_bytes(out),
+                  "peak_temp_bytes": stats.peak_temp_bytes}
+        if cfg.family != "emvs":  # the parameters: the first argument (a train state's)
+            params = args[0].params if cell.kind == "train" else args[0]
+            memory.update(param_bytes=_tree_bytes(params),
+                          param_bytes_global=_tree_bytes(params, local=False))
         rec.update({
             "devices": n_dev,
             "device": dev.type,
             "trace_s": round(t1 - t0, 2),
-            "memory": {"argument_bytes": _tree_bytes(args),
-                       "argument_bytes_global": _tree_bytes(args, local=False),
-                       "output_bytes": _tree_bytes(out),
-                       "peak_temp_bytes": stats.peak_temp_bytes},
+            "memory": memory,
             "roofline": roof.to_json(),
             "kernels": [{"op": o.name, "bytes": o.bytes_read + o.bytes_written,
                          "flops": o.flops, "outputs": o.outputs}
@@ -337,18 +378,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch")
     ap.add_argument("--cell")
-    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
+    ap.add_argument("--mesh", choices=[*MESHES, "both"], default="single",
+                    help="card (one card, unsharded), single (data=16, model=16 over 256 "
+                    "fake ranks), multi (pod=2, data=16, model=16 over 512), both "
+                    "(single and multi)")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--json", help="write the single cell's record here")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
-    ap.add_argument("--opts", default="", help="comma-separated options of the multi mesh: "
-                    "pad_heads,grad_acc_spec,bf16_combine,ep_a2a,ep_zero3,seq_parallel")
+    ap.add_argument("--opts", default="", help="comma-separated options of the production "
+                    "meshes: pad_heads,grad_acc_spec,bf16_combine,ep_a2a,ep_zero3,"
+                    "seq_parallel,int16_votes")
     args = ap.parse_args(argv)
 
     if args.all:
         os.makedirs(args.out, exist_ok=True)
-        meshes = list(MESHES) if args.mesh == "both" else [args.mesh]
+        meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
         failures = 0
         for arch in ARCHS:
             cfg = get_config(arch)
@@ -360,8 +405,7 @@ def main(argv=None) -> int:
                     if os.path.exists(out_json):
                         print(f"[skip-cached] {tag}")
                         continue
-                    skip = (cell_skipped(cfg, table[cell_name])
-                            or port_skip(cfg, table[cell_name], mk))
+                    skip = cell_skipped(cfg, table[cell_name])
                     if skip:  # no trace to isolate: the record, in process
                         with open(out_json, "w") as f:
                             json.dump({"arch": arch, "cell": cell_name, "mesh": mk,

@@ -26,8 +26,9 @@ is free. The reference's `trip_count` and `multiplicities` have no
 counterpart: a Python loop is unrolled as it runs, so every iteration's
 operations are recorded and the counts are already multiplied.
 Collectives are counted by the result bytes of `_c10d_functional`
-operations; a process group's eager collectives do not dispatch on fake
-tensors.
+operations (DTensor's) and of the `c10d` operations a process group's
+eager collectives dispatch (`distributed/emvs.py`'s all-reduce and
+all-gather).
 
 `peak_temp_bytes` is the most bytes the program's own allocations held at
 once (inputs excluded), tracked by the lifetime of every tensor an
@@ -52,6 +53,7 @@ _COLLECTIVES = {
     "all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
     "all_to_all_single": "all-to-all",
 }
+_EAGER_COLLECTIVES = {"allreduce_": "all-reduce", "_allgather_base_": "all-gather"}
 _ALLOCATE_ONLY = {"empty", "empty_like", "empty_strided", "new_empty",
                   "new_empty_strided"}
 
@@ -236,7 +238,8 @@ class GraphAnalysisMode(TorchDispatchMode):
         if not aliased_out:
             for t in outs:
                 self._allocated(t)
-        kind = _COLLECTIVES.get(short) if func.namespace == "_c10d_functional" else None
+        kind = {"_c10d_functional": _COLLECTIVES, "c10d": _EAGER_COLLECTIVES}.get(
+            func.namespace, {}).get(short)
         if kind is not None:
             payload = sum(tensor_bytes(t) for t in outs)
             self._col_counts[kind] += 1

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as col
 from repro_torch.models.layers import dense, init_dense, normal, rms_norm
 
 Tensor = torch.Tensor
@@ -162,10 +163,20 @@ def _project(params: dict, x: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor, T
     return tuple(dense(x, params[k]["w"]) for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
 
 
-def _finish(params: dict, y: Tensor, z: Tensor, cfg: ArchConfig) -> Tensor:
-    y = rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype), params["norm"],
-                 cfg.norm_eps)
-    return dense(y, params["out_proj"]["w"])
+def _finish(params: dict, y: Tensor, z: Tensor, cfg: ArchConfig, axis=None) -> Tensor:
+    """The gated norm and the output projection. With `axis` (a process
+    group splitting d_inner: a body on local shards) the norm's mean of
+    squares is summed over it and so are the projection's partial sums."""
+    g = y * F.silu(z.to(torch.float32)).to(y.dtype)
+    if axis is None:
+        return dense(rms_norm(g, params["norm"], cfg.norm_eps), params["out_proj"]["w"])
+    gf = g.to(torch.float32)
+    d_in = cfg.ssm.d_inner(cfg.d_model)
+    # the sum is invariant over the axis and used by every rank's slice:
+    # `enter` sums its cotangent's shares
+    var = col.enter(col.psum(torch.sum(gf * gf, dim=-1, keepdim=True), axis), axis) / d_in
+    g = (gf * torch.rsqrt(var + cfg.norm_eps) * params["norm"].to(torch.float32)).to(g.dtype)
+    return col.psum(dense(g, params["out_proj"]["w"]), axis)
 
 
 def mamba2_forward(params: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
@@ -175,11 +186,17 @@ def mamba2_forward(params: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
 
 
 def mamba2_prefill(params: dict, x: Tensor, cfg: ArchConfig, *,
-                   want_state: bool = True) -> tuple[Tensor, SSMState | None]:
+                   want_state: bool = True, axis=None) -> tuple[Tensor, SSMState | None]:
     """Forward returning the decode-ready state: the last K-1 pre-conv
-    inputs in the activation dtype and the SSD state in float32."""
+    inputs in the activation dtype and the SSD state in float32.
+
+    `axis`: a process group over which `params` hold a slice of the heads
+    (and of d_inner), as a body on local shards runs the layer (`models/
+    model.py::_mamba_local`); the widths come from the parameters, and
+    `_finish` sums over the axis. None: the whole layer."""
     sc = cfg.ssm
-    d_in, nh, n, p = _dims(cfg)
+    d_in, nh = params["w_x"]["w"].shape[-1], params["A_log"].shape[-1]
+    p = sc.head_dim
     bt, s = x.shape[:2]
     z, xs, B, C, dt = _project(params, x)
     km1 = sc.conv_kernel - 1
@@ -195,7 +212,7 @@ def mamba2_prefill(params: dict, x: Tensor, cfg: ArchConfig, *,
                            dt + params["dt_bias"][None, None, :],
                            torch.exp(params["A_log"]), B, C, params["D"],
                            chunk=min(sc.chunk_size, s))
-    out = _finish(params, y.reshape(bt, s, d_in), z, cfg)
+    out = _finish(params, y.reshape(bt, s, d_in), z, cfg, axis)
     if not want_state:
         return out, None
     return out, SSMState(*tails, ssd=h_fin.to(torch.float32))

@@ -5,7 +5,10 @@ super-blocks (the arch's repeating layer pattern: one attention layer for
 the dense and MoE families, one Mamba-2 layer for the SSM family, Jamba's
 eight) with parameters stacked on a leading axis; here
 `params["blocks"]` is a list with one dict per layer, in layer order
-(super-block x pattern position), and the scan is a Python loop.
+(super-block x pattern position), and the scan is a Python loop. On a
+mesh where the reference's FSDP shards a stack's super-block dim, those
+leaves are held stacked under `params["stacks"]` (the mesh layout of
+`distributed/sharding.py`), and each layer reads its row (`_layers`).
 
 Decode state is a list with one entry per layer: a `KVCache` for an
 attention layer, updated in place (see `repro_torch.models.kv_cache`),
@@ -187,6 +190,12 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     return params
 
 
+def layer_shapes(cfg: ArchConfig) -> list[dict]:
+    """Each pattern position's layer as meta tensors: its leaves' shapes."""
+    return [_init_block(None, cfg, kind, i, torch.bfloat16, torch.device("meta"))
+            for i, kind in enumerate(cfg.pattern())]
+
+
 def param_count(params: dict) -> int:
     def leaves(t):
         if isinstance(t, dict):
@@ -302,6 +311,52 @@ def _attend(attend, q: Tensor, k: Tensor, v: Tensor, ctx: ModelCtx) -> Tensor:
     return DTensor.from_local(out, mesh, qpl, run_check=False)
 
 
+def _mamba_local(p: dict, h: Tensor, cfg: ArchConfig, ctx: ModelCtx, want_state: bool
+                 ) -> tuple[Tensor, m2.SSMState | None]:
+    """A Mamba-2 layer's prefill on a mesh, on local tensors (Megatron's
+    split of the mixer): DTensor's rules for its convs, scans and einsums
+    differ between PyTorch versions (some lack `flip`, some mis-place a
+    view's gradient on a mesh of size-1 dims) and flatten split dims into
+    strided layouts. Batch over the batch axes; where the heads divide
+    `model`, each model rank runs its heads' slice of d_inner and the norm
+    and output projection sum over `model` (`mamba2._finish`), else every
+    rank runs the whole layer. Each input's gradient sums over the axes
+    that split its uses. One rank runs `mamba2_prefill` as it is."""
+    mesh = h.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    sizes = shd.axis_sizes(mesh)
+    nh = cfg.ssm.num_heads(cfg.d_model)
+    split = sizes.get("model", 1) > 1 and nh % sizes["model"] == 0
+    m = names.index("model") if split else None
+    hpl = ctx.local_placements(h)
+    batch = [pl == Shard(0) for pl in hpl]
+
+    def local(t):
+        """A parameter's local shard (gathered over every axis but `model`):
+        its gradient is partial over the batch axes and, where `model`
+        splits its uses but not it, over `model`."""
+        if not isinstance(t, DTensor):
+            return t
+        grads = [Partial() if batch[i] or (i == m and pl == Replicate()) else pl
+                 for i, pl in enumerate(t.placements)]
+        return t.to_local(grad_placements=tuple(grads))
+
+    h_grads = [Partial() if i == m else pl for i, pl in enumerate(hpl)]
+    h_l = h.redistribute(mesh, hpl).to_local(grad_placements=tuple(h_grads))
+    y, st = m2.mamba2_prefill(shd.map_with_path(p, lambda _, t: local(t)), h_l, cfg,
+                              want_state=want_state,
+                              axis=mesh.get_group("model") if split else None)
+
+    def placed(t, dim=None):
+        pl = [Shard(dim) if i == m and dim is not None else q for i, q in enumerate(hpl)]
+        return DTensor.from_local(t, mesh, pl, run_check=False)
+
+    if st is not None:  # conv windows (B, K-1, C), the SSD state (B, H, N, P)
+        st = m2.SSMState(conv_x=placed(st.conv_x, 2), conv_B=placed(st.conv_B),
+                         conv_C=placed(st.conv_C), ssd=placed(st.ssd, 1))
+    return placed(y), st
+
+
 def _decode_attention(q: Tensor, k: Tensor, v: Tensor, length, ctx: ModelCtx) -> Tensor:
     """One-token attention over the cache: `ctx.seq_shard`'s flash-decode
     when set; over a DTensor cache, the same partial-softmax combine over
@@ -348,7 +403,10 @@ def _superblock(blocks: list[dict], x: Tensor, *, cfg: ArchConfig, positions: Te
             if state is not None:
                 write_cache(state[first + j], qkv.k, qkv.v, 0)
         else:
-            y, st = m2.mamba2_prefill(p["mamba"], h, cfg, want_state=state is not None)
+            if isinstance(h, DTensor):
+                y, st = _mamba_local(p["mamba"], h, cfg, ctx, state is not None)
+            else:
+                y, st = m2.mamba2_prefill(p["mamba"], h, cfg, want_state=state is not None)
             x = x + y
             if state is not None:
                 state[first + j] = m2.SSMState(*(t.to(torch.float32) for t in st))
@@ -356,6 +414,21 @@ def _superblock(blocks: list[dict], x: Tensor, *, cfg: ArchConfig, positions: Te
         if "moe_aux" in metrics:
             aux = metrics["moe_aux"] if aux is None else aux + metrics["moe_aux"]
     return ctx.constrain(x), aux
+
+
+def _layers(params: dict, cfg: ArchConfig, ctx: ModelCtx) -> list[dict]:
+    """Every layer's parameters, in layer order. In the mesh layout
+    (`distributed/sharding.py::to_mesh_layout`) each stacked leaf is
+    gathered whole over every mesh axis but `model`, once (GSPMD gathers a
+    stack sharded on its super-block dim before the scan over it; the
+    gradient leaves as the reduce-scatter back to its placement), and each
+    layer reads its row."""
+    stacks = params.get(shd.STACKS)
+    if stacks is None:
+        return params["blocks"]
+    gathered = [shd.map_with_path(s, lambda _, t: ctx.unshard(t)) for s in stacks]
+    rows = shd.layer_rows(gathered, cfg.n_superblocks())
+    return [shd.with_rows(p, r) for p, r in zip(params["blocks"], rows)]
 
 
 def _layer_stack(params: dict, x: Tensor, cfg: ArchConfig, *, attend, ctx: ModelCtx,
@@ -367,9 +440,10 @@ def _layer_stack(params: dict, x: Tensor, cfg: ArchConfig, *, attend, ctx: Model
     None without a MoE layer)."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None, :]
     n = len(cfg.pattern())
+    layers = _layers(params, cfg, ctx)
     aux = None
     for sb in range(cfg.n_superblocks()):
-        run = functools.partial(_superblock, params["blocks"][sb * n:(sb + 1) * n],
+        run = functools.partial(_superblock, layers[sb * n:(sb + 1) * n],
                                 cfg=cfg, positions=positions, attend=attend,
                                 state=state, first=sb * n, ctx=ctx)
         x, a = checkpoint(_on_mesh(ctx, run), x, use_reentrant=False) if remat else run(x)
@@ -502,7 +576,7 @@ def prefill(params: dict, tokens: Tensor, cfg: ArchConfig, max_len: int, *,
 
 def _decode_layers(params: dict, x: Tensor, state: list[LayerState], cfg: ArchConfig,
                    positions: Tensor, write, length, ctx: ModelCtx) -> Tensor:
-    for i, (p, kind) in enumerate(zip(params["blocks"], _kinds(cfg))):
+    for i, (p, kind) in enumerate(zip(_layers(params, cfg, ctx), _kinds(cfg))):
         p = ctx.unshard(p)
         x = ctx.constrain(x)
         h = rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)

@@ -47,8 +47,8 @@ class AffineCostModel:
         if fit is None:
             return None
         overhead, rate = fit
-        # a fit can extrapolate below zero outside its support; a sweep
-        # can never take negative time
+        # parameters given by hand can extrapolate below zero (a fit's
+        # cannot: `_lstsq_affine`); a sweep can never take negative time
         return max(0.0, overhead + rate * key.rows)
 
     def to_json(self) -> dict:
@@ -83,10 +83,17 @@ class TableCostModel:
 
 
 def _lstsq_affine(points: list[tuple[float, float]]) -> tuple[float, float]:
-    """Least-squares fit of ``y = a + b*x`` without importing numpy.
+    """Least-squares fit of ``y = a + b*x`` with ``a, b >= 0``, without
+    importing numpy.
 
     The normal equations for a 2-parameter fit are closed-form, so the
-    fit needs no array library.
+    fit needs no array library. A sweep's cost cannot fall as its rows
+    grow, nor fall below nothing: where the unconstrained fit has a
+    negative rate or overhead (timing noise over a narrow span of rows),
+    the constrained optimum lies on an edge of the quadrant, pure
+    overhead or pure rate, and the better of the two is taken. Otherwise
+    an extrapolation to groups several times the measured rows can
+    predict zero-cost sweeps. (The reference keeps the unconstrained fit.)
     """
     n = len(points)
     sx = sum(x for x, _ in points)
@@ -96,10 +103,14 @@ def _lstsq_affine(points: list[tuple[float, float]]) -> tuple[float, float]:
     denom = n * sxx - sx * sx
     if denom == 0:
         # all rows equal: degenerate — model it as pure overhead
-        return (sy / n, 0.0)
+        return (max(0.0, sy / n), 0.0)
     b = (n * sxy - sx * sy) / denom
     a = (sy - b * sx) / n
-    return (a, b)
+    if a >= 0 and b >= 0:
+        return (a, b)
+    edges = [(max(0.0, sy / n), 0.0), (0.0, max(0.0, sxy / sxx))]
+    return min(edges, key=lambda ab: sum((ab[0] + ab[1] * x - y) ** 2
+                                         for x, y in points))
 
 
 def fit_affine_model(table: CostTable) -> tuple[AffineCostModel, dict]:

@@ -11,8 +11,11 @@ A sharded state (DTensors) saves as full arrays: every rank calls `save`,
 each gathers every leaf, rank 0 writes. `restore(shardings=)` is the
 elastic path: every rank reads the full arrays and keeps its shard of
 each leaf on the mesh of `shardings` (a TrainState of
-`sharding.NamedSharding`s in the port's per-layer layout, e.g.
-`tree_shardings(state_specs(...), mesh)`), whatever mesh saved them.
+`sharding.NamedSharding`s in the port's layout on that mesh, e.g.
+`tree_shardings(state_specs(...), mesh)`: where that mesh holds leaves
+stacked, `sharding.to_mesh_layout`), whatever mesh saved them. The
+reference's stacked leaves are split per layer and restacked there, so
+a stack sharded over `data` takes each rank's rows at any `data` size.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from torch.utils import _pytree as pytree
 from repro_torch import interop
 from repro_torch.configs import ArchConfig
 from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.distributed import sharding as shd
 from repro_torch.training.optimizer import OptState
 from repro_torch.training.train_step import TrainState
 
@@ -66,7 +70,7 @@ def restore(ckpt_dir: str, step: int, like: TrainState, cfg: ArchConfig,
     dev = like.opt.step.device
     if shardings is not None:
         def layers(tree, sh):
-            full = interop.lm_params_from_numpy(tree, cfg, device="cpu")
+            full = shd.in_layout_of(interop.lm_params_from_numpy(tree, cfg, device="cpu"), sh)
             return pytree.tree_map(lambda t, s: s.place(t), full, sh)
 
         opt = d["opt"]

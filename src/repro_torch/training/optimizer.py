@@ -87,7 +87,8 @@ def _decays(path: tuple, p: Tensor) -> bool:
     super-blocks on a leading axis, so a leaf under the port's top-level
     `blocks` list (one layer's slice) counts one dimension more: block
     norms, biases and Mamba-2's A_log, dt_bias and D decay, the final norm
-    does not."""
+    does not. A leaf a mesh layout holds stacked (under `stacks`) has that
+    axis already."""
     stacked = bool(path) and getattr(path[0], "key", None) == "blocks"
     return p.dim() + stacked >= 2
 

@@ -10,7 +10,11 @@ in float32 and averaged, as are the loss and its parts.
 
 On a mesh the state is DTensors placed by `state_specs` (the reference's
 in/out shardings) and the batch is split over the batch axes; DTensor
-inserts the collectives GSPMD inserts. Each gradient is redistributed to
+inserts the collectives GSPMD inserts. `state_specs` gives the specs of
+the mesh layout (`distributed/sharding.py`: the leaves whose super-block
+dim the reference's FSDP shards held stacked), and `place_state` moves
+the parameters, m and v into it, so the step, AdamW and the checkpoints
+see one tree. Each gradient is redistributed to
 its parameter's placements, and the float32 microbatch accumulator is
 replicated, or with `grad_acc_sharded` held in the parameters' placements.
 The mesh-only `TrainOptions` fields are ignored without a mesh, as in the
@@ -174,19 +178,24 @@ def make_train_step(cfg: ArchConfig, opts: TrainOptions,
 
 def state_specs(cfg: ArchConfig, state: TrainState, mesh, plan: shd.ShardingPlan
                 ) -> TrainState:
-    """A `P` per leaf of the train state: the parameters' specs for the
-    parameters, m and v; the step counter replicated."""
+    """A `P` per leaf of the train state in its layout on `mesh`: the
+    parameters' specs (`param_specs`, the mesh layout) for the parameters,
+    m and v; the step counter replicated. `state` may be in either layout."""
     p_specs = shd.param_specs(cfg, state.params, mesh, plan)
     return TrainState(params=p_specs, opt=OptState(step=shd.P(), m=p_specs, v=p_specs))
 
 
-def place_state(state: TrainState, specs: TrainState, mesh) -> TrainState:
+def place_state(state: TrainState, specs: TrainState, mesh, *,
+                src_data_rank: int | None = 0) -> TrainState:
     """The state placed on `mesh` by `specs` (DTensors; the step counter
-    stays a plain tensor, the same on every rank)."""
-    return TrainState(params=shd.distribute(state.params, specs.params, mesh),
-                      opt=OptState(step=state.opt.step,
-                                   m=shd.distribute(state.opt.m, specs.opt.m, mesh),
-                                   v=shd.distribute(state.opt.v, specs.opt.v, mesh)))
+    stays a plain tensor, the same on every rank), moved into the specs'
+    mesh layout where it is one dict per layer (`sharding.distribute`)."""
+    def place(tree, spec):
+        return shd.distribute(tree, spec, mesh, src_data_rank=src_data_rank)
+
+    return TrainState(params=place(state.params, specs.params),
+                      opt=OptState(step=state.opt.step, m=place(state.opt.m, specs.opt.m),
+                                   v=place(state.opt.v, specs.opt.v)))
 
 
 def lower_train_step(cfg: ArchConfig, opts: TrainOptions, mesh, plan: shd.ShardingPlan,
@@ -207,8 +216,8 @@ def lower_train_step(cfg: ArchConfig, opts: TrainOptions, mesh, plan: shd.Shardi
     with fake:
         state = init_train_state(None, cfg, opts, device=dev)
     sspec = state_specs(cfg, state, mesh, plan)
-    with fake:
-        placed = place_state(state, sspec, mesh)
+    with fake:  # every rank holds the same fake tensors: no broadcast
+        placed = place_state(state, sspec, mesh, src_data_rank=None)
         batch = {k: (v if v.device.type != "meta" else torch.empty(v.shape, dtype=v.dtype,
                                                                    device=dev))
                  for k, v in input_specs.items()}

@@ -7,7 +7,10 @@ JSON): the replayed schedules must be the same, dispatch by dispatch —
 virtual issue time, the tagged segments of each group, S bucket,
 capacity, predicted, start and done times — with the same per-segment
 latencies and `predicted_p99_s`. The SLO monotonicity on burst traces is
-checked on seeded traces (no hypothesis needed). `calibrate --dry-run`
+checked on seeded traces (no hypothesis needed). The burst gate holds on
+a narrow, noisy table like the main path's, where the reference's
+unconstrained fit prices groups at zero and its gate raises.
+`calibrate --dry-run`
 must recover its ground truth within 1e-9, and both CLIs must print what
 the reference's print.
 """
@@ -18,10 +21,11 @@ import pytest
 
 from repro.profiling import AffineCostModel as JAffine
 from repro.profiling import CostTable as JCostTable
+from repro.profiling import VariantKey as JVariantKey
 from repro.profiling import calibrate as j_cal
 from repro.serving import dispatch_replay as j_rep
 from repro_torch.core.pipeline import DispatchPlanner
-from repro_torch.profiling import AffineCostModel, CostTable
+from repro_torch.profiling import AffineCostModel, CostTable, VariantKey, fit_affine_model
 from repro_torch.profiling import calibrate as t_cal
 from repro_torch.serving import dispatch_replay as t_rep
 
@@ -177,6 +181,33 @@ def test_check_slo_burst_gate_passes_on_synthetic_table(backend):
     assert tp["dispatch_count"] < record["segments"]
     assert [a.__dict__ for a in t_rep.burst_arrivals(table, backend=backend)] == \
         [a.__dict__ for a in j_rep.burst_arrivals(jtable, backend=backend)]
+
+
+def test_check_slo_burst_gate_on_a_narrow_noisy_table():
+    """The table the streaming benchmark measures at the EMVS main path:
+    only single-segment sweeps at 20, 32 and 40 rows, two of them from one
+    sample. One slow sample at 20 rows gives the unconstrained fit a
+    negative rate, and the burst replay's 4-segment groups (80-160 rows)
+    then extrapolate to zero-cost sweeps: the reference's gate raises on
+    a zero deadline. The port's fit keeps its rate >= 0 (pure overhead
+    here), so every group costs the mean sweep and the gate holds."""
+    table, jtable = CostTable(), JCostTable()
+    for cap, walls in ((20, [9e-3]), (32, [6e-3]), (40, [6e-3] * 28)):
+        for wall in walls:
+            table.record(VariantKey(1, cap, "batched+kernel", "nearest", True), wall)
+            jtable.record(JVariantKey(1, cap, "batched+kernel", "nearest", True), wall)
+    with pytest.raises(ValueError, match="target_latency_s"):
+        j_rep.check_slo_burst(jtable, backend="batched+kernel")
+    record = t_rep.check_slo_burst(table, backend="batched+kernel")
+    mean = (9e-3 + 6e-3 + 6e-3) / 3  # the fit weighs each variant's mean once
+    overhead, rate = fit_affine_model(table)[0].params["batched+kernel"]
+    assert overhead == pytest.approx(mean, rel=1e-12) and rate == 0.0
+    tp, slo = record["throughput"], record["slo_adaptive"]
+    assert [d["predicted_s"] for d in tp["dispatches"]] == \
+        pytest.approx([mean] * tp["dispatch_count"], rel=1e-12)
+    assert record["target_latency_s"] > 0
+    assert slo["dispatch_count"] <= tp["dispatch_count"]
+    assert slo["predicted_p99_s"] <= record["target_latency_s"] + 1e-12
 
 
 def test_arrivals_from_trace_and_table_crossing():

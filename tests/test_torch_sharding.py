@@ -7,9 +7,10 @@ stand-in mesh at the production shapes, single (16, 16) and multi
 port's with `mesh_dim_names` and a `shape` tuple. Parameter shapes come
 from `jax.eval_shape` (reference, stacked) and meta tensors (port, one
 dict per layer). For every LM arch, with FSDP on and off, each port leaf's
-spec equals the reference's spec of its stacked leaf with the super-block
-entry dropped, entry for entry; where the reference shards the super-block
-dim itself, the port raises naming the leaf. `decode_state_specs` is held
+spec equals the reference's spec of its stacked leaf, entry for entry:
+with the super-block entry dropped for a per-layer leaf, and unchanged
+for a leaf the port holds stacked (where the reference shards the
+super-block dim itself: the mesh layout of `sharding.py`). `decode_state_specs` is held
 the same way for `decode_32k` and `long_500k`. `to_placements` is checked
 on a small gloo-free fake mesh.
 """
@@ -62,23 +63,6 @@ def _port_leaves(tree, path=()):
         yield path, tree
 
 
-def _held(port_spec_of, ref_specs: dict, leaves, ref_key) -> int:
-    """Each port leaf's spec (or its raise) against the reference's."""
-    n = 0
-    for path, leaf in leaves:
-        want = _norm(ref_specs[ref_key(path)])
-        want = want + (None,) * (leaf.dim() + 1 - len(want))
-        if want[0] is not None:
-            with pytest.raises(shd.StackedDimSharding, match=ref_key(path)):
-                port_spec_of(path, leaf)
-            continue
-        got = _norm(port_spec_of(path, leaf))
-        got = got + (None,) * (leaf.dim() - len(got))
-        assert got == want[1:], (path, got, want)
-        n += 1
-    return n
-
-
 @pytest.mark.parametrize("fsdp", [True, False])
 @pytest.mark.parametrize("mesh_kind", list(MESHES))
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -92,36 +76,43 @@ def test_param_specs_match_reference(arch, mesh_kind, fsdp):
     shapes = jax.eval_shape(lambda: JM.init_params(jax.random.PRNGKey(0), jcfg))
     ref = _ref_by_path(jshd.param_specs(jcfg, shapes, jmesh, jplan))
     tparams = TM.init_params(tcfg, generator=None, device="meta")
-    n_pat = len(tcfg.pattern())
+    n_pat, n_sb = len(tcfg.pattern()), tcfg.n_superblocks()
+    specs = shd.param_specs(tcfg, tparams, tmesh, tplan)
+    layout = shd.to_mesh_layout(tparams, shd.stacked_paths(tcfg, tmesh, tplan))
+    held = set()  # reference leaves the port holds, per layer or stacked
+    n_per_layer = n_stacked = 0
+    for path, leaf in _port_leaves(layout):
+        got = specs
+        for k in path:
+            got = got[k]
+        assert got == shd.param_spec(path, tuple(leaf.shape), tcfg, tmesh, tplan), path
+        got = _norm(got)
+        if path[0] == "blocks":  # the reference's entry for the super-block dim dropped
+            key = "/".join(str(p) for p in ("blocks", path[1] % n_pat) + path[2:])
+            want = _norm(ref[key])
+            want = want + (None,) * (leaf.dim() + 1 - len(want))
+            assert want[0] is None, (path, want)
+            assert got + (None,) * (leaf.dim() - len(got)) == want[1:], (path, got, want)
+            n_per_layer += 1
+        elif path[0] == shd.STACKS:  # stacked: the reference's spec as it is
+            key = "/".join(str(p) for p in ("blocks",) + path[1:])
+            assert leaf.shape[0] == n_sb and want_dim0(ref[key]) is not None, path
+            assert got == _norm(ref[key]), (path, got, ref[key])
+            n_stacked += 1
+        else:
+            key = "/".join(str(p) for p in path)
+            want = _norm(ref[key])
+            assert got + (None,) * (leaf.dim() - len(got)) == \
+                want + (None,) * (leaf.dim() - len(want)), path
+        held.add(key)
+    assert held == set(ref), set(ref) ^ held
+    assert n_per_layer > 0
+    assert n_stacked == sum(len(p) for p in shd.stacked_paths(tcfg, tmesh, tplan))
 
-    def ref_key(path):
-        if path[0] == "blocks":
-            return "/".join(str(p) for p in ("blocks", path[1] % n_pat) + path[2:])
-        return "/".join(str(p) for p in path)
 
-    def top_level(path, leaf):
-        want = _norm(ref[ref_key(path)])
-        return want + (None,) * (leaf.dim() - len(want))
-
-    leaves = list(_port_leaves(tparams))
-    blocks = [(p, x) for p, x in leaves if p[0] == "blocks"]
-    for path, leaf in leaves:
-        if path[0] != "blocks":
-            got = _norm(shd.param_spec(path, tuple(leaf.shape), tcfg, tmesh, tplan))
-            assert got + (None,) * (leaf.dim() - len(got)) == top_level(path, leaf), path
-    n = _held(lambda path, x: shd.param_spec(path, tuple(x.shape), tcfg, tmesh, tplan),
-              ref, blocks, ref_key)
-    assert n > 0
-    if n == len(blocks):  # the whole tree maps, leaf for leaf as above
-        specs = shd.param_specs(tcfg, tparams, tmesh, tplan)
-        for path, leaf in leaves:
-            got = specs
-            for k in path:
-                got = got[k]
-            assert got == shd.param_spec(path, tuple(leaf.shape), tcfg, tmesh, tplan)
-    else:
-        with pytest.raises(shd.StackedDimSharding):
-            shd.param_specs(tcfg, tparams, tmesh, tplan)
+def want_dim0(spec):
+    """The reference spec's entry for dim 0, None where it has none."""
+    return (_norm(spec) + (None,))[0]
 
 
 @pytest.mark.parametrize("mesh_kind", list(MESHES))
@@ -181,13 +172,63 @@ def test_to_placements_orders_tuple_entries_by_the_mesh():
 
 def test_stacked_dim_sharding_raises_naming_the_leaf():
     """mamba2-2.7b's conv_x_w stack (64, 4, 5120) on the single mesh: the
-    reference's FSDP takes the 64-layer dim; the port cannot and says so."""
+    reference's FSDP takes the 64-layer dim. The port holds that leaf
+    stacked there, placed P('data', None, 'model'): each data rank keeps 4
+    of the 64 layers' rows. Its per-layer spec raises, naming the leaf."""
     jcfg, tcfg = j_get_config("mamba2-2.7b"), get_config("mamba2-2.7b")
     jmesh, tmesh = _meshes("single")
+    plan = shd.ShardingPlan.for_mesh(tmesh)
     ref = jshd.param_specs(jcfg, jax.eval_shape(
         lambda: JM.init_params(jax.random.PRNGKey(0), jcfg)), jmesh,
         jshd.ShardingPlan.for_mesh(jmesh))
-    assert _norm(ref["blocks"][0]["mamba"]["conv_x_w"])[0] == "data"
-    with pytest.raises(shd.StackedDimSharding, match="blocks/0/mamba/conv_x_w"):
-        shd.param_spec(("blocks", 0, "mamba", "conv_x_w"), (4, 5120), tcfg, tmesh,
-                       shd.ShardingPlan.for_mesh(tmesh))
+    assert _norm(ref["blocks"][0]["mamba"]["conv_x_w"]) == ("data", None, "model")
+    assert shd.stacked_paths(tcfg, tmesh, plan) == (
+        (("mamba", "conv_x_w"), ("mamba", "conv_x_b"), ("mamba", "norm")),)
+    specs = shd.param_specs(tcfg, TM.init_params(tcfg, generator=None, device="meta"),
+                            tmesh, plan)
+    assert specs["stacks"][0]["mamba"]["conv_x_w"] == shd.P("data", None, "model")
+    assert "conv_x_w" not in specs["blocks"][0]["mamba"]
+    assert shd.to_placements(specs["stacks"][0]["mamba"]["conv_x_w"], tmesh) == (
+        Shard(0), Shard(2))
+    assert 64 // dict(zip(tmesh.mesh_dim_names, tmesh.shape))["data"] == 4
+    with pytest.raises(ValueError, match="blocks/0/mamba/conv_x_w"):
+        shd.param_spec(("blocks", 0, "mamba", "conv_x_w"), (4, 5120), tcfg, tmesh, plan)
+    # FSDP off: no leaf is stacked, the tree stays one dict per layer
+    off = shd.ShardingPlan.for_mesh(tmesh, fsdp=False)
+    assert shd.stacked_paths(tcfg, tmesh, off) == ((),)
+
+
+def test_mesh_layout_round_trips_bitwise():
+    """A small tree moved into the mesh layout and read back per layer
+    (`layer_rows`, `with_rows`) gives every leaf back bitwise, and the
+    reference's stacked tree (`interop.lm_params_stacked`) is the same from
+    either layout."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import interop
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b").reduced(), n_layers=3)
+    params = TM.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            dtype=torch.float32, device="cpu")
+    paths = ((("mamba", "conv_x_w"), ("mamba", "norm")),)
+    layout = shd.to_mesh_layout(params, paths)
+    assert shd.layout_of(layout) == paths and shd.layout_of(params) is None
+    assert layout["stacks"][0]["mamba"]["conv_x_w"].shape == (3,) + tuple(
+        params["blocks"][0]["mamba"]["conv_x_w"].shape)
+    rows = shd.layer_rows(layout["stacks"], cfg.n_superblocks())
+    for a, layer, r in zip(params["blocks"], layout["blocks"], rows):
+        back = shd.with_rows(layer, r)
+        for path, t in _port_leaves(a):
+            got = back
+            for k in path:
+                got = got[k]
+            assert torch.equal(got, t), path
+    want, got = (interop.lm_params_stacked(t, cfg) for t in (params, layout))
+    flat = dict(_port_leaves(want))
+    assert dict(_port_leaves(got)).keys() == flat.keys()
+    for path, t in _port_leaves(got):
+        assert torch.equal(t, flat[path]), path
+    assert torch.equal(shd.in_layout_of(params, layout)["stacks"][0]["mamba"]["norm"],
+                       layout["stacks"][0]["mamba"]["norm"])
