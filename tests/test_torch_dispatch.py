@@ -44,7 +44,7 @@ from repro_torch.profiling import cost_table as t_ct
 from repro_torch.profiling import recorder as t_rec
 from repro_torch.serving import emvs_stream as t_stream
 from repro_torch.serving import sweep_dispatcher as t_disp
-from test_torch_streaming import (  # noqa: F401 - `scene` and `_one_torch_thread` are fixtures
+from test_torch_streaming import (  # noqa: F401 - `scene` is a fixture
     EVENTS_PER_FRAME,
     POLICIES,
     _assert_bitwise,
@@ -55,7 +55,6 @@ from test_torch_streaming import (  # noqa: F401 - `scene` and `_one_torch_threa
     _engine,
     _j_chunks,
     _j_traj,
-    _one_torch_thread,
     _opts,
     _reference,
     _reference_sweeps_stubbed,

@@ -34,16 +34,6 @@ from repro_torch.events.trajectory_stream import (
 POSE_ATOL = 2.5e-7
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small tensors: one intra-op thread is as fast and leaves the other
-    cores to the test workers running beside this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _traj_from_reference(traj) -> t_sim.Trajectory:
     return t_sim.Trajectory(torch.from_numpy(np.array(traj.times)),
                             SE3(torch.from_numpy(np.array(traj.poses.R)),

@@ -38,16 +38,6 @@ from repro_torch.examples import emvs_reconstruction, quickstart, serve_lm, trai
 from repro_torch.launch import train as launch_train
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small tensors: one intra-op thread leaves the other cores to the
-    test workers running beside this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def davis346_frames():
     """16 trajectory steps seen by a DAVIS346, 1024-event frames, as numpy."""

@@ -38,16 +38,6 @@ CX, CY, W, H = 16.0, 12.0, 40, 24
 BILINEAR_ATOL, BILINEAR_RTOL = 1e-5, 1e-6
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small tensors: one intra-op thread is as fast and leaves the other
-    cores to the test workers running beside this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _inputs(seed: int, F: int, E: int, NZ: int, w: int = W, h: int = H):
     rng = np.random.default_rng(seed)
     xy0 = rng.uniform((-5, -5), (w + 5, h + 5), (F, E, 2)).astype(np.float32)

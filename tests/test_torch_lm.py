@@ -49,16 +49,6 @@ J_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 T_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """Small tensors: few intra-op threads leave the cores to the test
-    workers running beside this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.float().numpy()

@@ -1,7 +1,7 @@
 """The port's multi-device LM code over `torch.distributed`, on the CPU.
 
-Each gloo group (2 ranks, then 4) is spawned once for the module with
-`torch.multiprocessing.spawn` and a `FileStore` under a temporary
+Each gloo group (4 ranks, then 2) is spawned once for the module with
+`gloo_group.outcomes` and a `FileStore` under a temporary
 directory, as `tests/test_torch_sharded.py` does. The parent makes every
 input from a seed with numpy and the reference's outputs with JAX; the
 ranks run the port and hold it to them, and each rank reports every
@@ -40,7 +40,6 @@ import os
 import pickle
 import subprocess
 import sys
-import traceback
 import types
 from datetime import timedelta
 
@@ -48,9 +47,9 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 from torch.utils import _pytree as pytree
 
+from gloo_group import assert_case, check, outcomes
 from repro_torch import interop
 from repro_torch.configs import get_config
 
@@ -87,15 +86,6 @@ def _train_cfg():
 # ---------------------------------------------------------------------------
 
 
-def _check(out: dict, name, fn) -> None:
-    """Run one case; record None, or the failure's traceback."""
-    try:
-        fn()
-        out[name] = None
-    except Exception:  # noqa: BLE001 — reported to the parent, which fails the test
-        out[name] = traceback.format_exc()
-
-
 def _close(got: torch.Tensor, want, atol: float, what: str) -> None:
     want = torch.as_tensor(np.asarray(want))
     assert got.shape == want.shape, (what, got.shape, want.shape)
@@ -104,7 +94,6 @@ def _close(got: torch.Tensor, want, atol: float, what: str) -> None:
 
 
 def _ranks(rank: int, world: int, tmp: str) -> None:
-    torch.set_num_threads(1)
     with open(os.path.join(tmp, "spec.pkl"), "rb") as f:
         spec = pickle.load(f)
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, f"store{world}"), world),
@@ -145,7 +134,7 @@ def _ep_cases(world: int, spec: dict, out: dict) -> None:
             atol = BF16_COMBINE_REL * float(np.abs(want).max()) if bf16 else EP_ATOL
             _close(y, want, atol, f"ep {dispatch}")
             assert float(m["moe_drop_frac"]) == 0.0
-        _check(out, ("ep", name), run)
+        check(out, ("ep", name), run)
 
 
 def _grad_case(spec: dict, out: dict) -> None:
@@ -166,7 +155,7 @@ def _grad_case(spec: dict, out: dict) -> None:
         assert sorted(paths + ["x"]) == sorted(want)
         for g, path in zip(grads, paths + ["x"]):
             _close(g, want[path], GRAD_REL * float(np.abs(want[path]).max()), path)
-    _check(out, "grad", run)
+    check(out, "grad", run)
 
 
 def _decode_cases(world: int, spec: dict, out: dict) -> None:
@@ -178,7 +167,7 @@ def _decode_cases(world: int, spec: dict, out: dict) -> None:
         def run(length=length):
             got = SeqShard(make_host_mesh(world, 1)).decode_attention(q, k, v, length)
             _close(got, spec["dec"][length], DECODE_ATOL, f"decode at {length}")
-        _check(out, ("decode", length), run)
+        check(out, ("decode", length), run)
 
 
 def _compression_case(rank: int, spec: dict, out: dict) -> None:
@@ -194,7 +183,7 @@ def _compression_case(rank: int, spec: dict, out: dict) -> None:
                 assert torch.equal(mean[name], torch.from_numpy(c["mean"][step][name])), name
                 assert torch.equal(state.residual[name],
                                    torch.from_numpy(c["residual"][rank][step][name])), name
-    _check(out, "compression", run)
+    check(out, "compression", run)
 
 
 def _ctx_case(spec: dict, out: dict) -> None:
@@ -219,7 +208,7 @@ def _ctx_case(spec: dict, out: dict) -> None:
         for i, (a, b) in enumerate(zip(state, want_state)):
             _close(a.k.full_tensor(), b.k.numpy(), EP_ATOL, f"layer {i} K cache")
             _close(a.v.full_tensor(), b.v.numpy(), EP_ATOL, f"layer {i} V cache")
-    _check(out, "ctx", run)
+    check(out, "ctx", run)
 
 
 def _train_case(world: int, spec: dict, tmp: str, out: dict) -> None:
@@ -269,7 +258,7 @@ def _train_case(world: int, spec: dict, tmp: str, out: dict) -> None:
             if dist.get_rank() == 0:
                 torch.save(full, os.path.join(tmp, "saved_state.pt"))
             dist.barrier()
-    _check(out, ("train", world), run)
+    check(out, ("train", world), run)
 
     if world == 2:
         def restore():
@@ -288,7 +277,7 @@ def _train_case(world: int, spec: dict, tmp: str, out: dict) -> None:
                 for a, b in zip(pytree.tree_leaves(tree), pytree.tree_leaves(ref)):
                     assert torch.equal(a.full_tensor(), b)
             assert int(back.opt.step) == int(saved.opt.step) == TRAIN_STEPS
-        _check(out, "elastic", restore)
+        check(out, "elastic", restore)
 
 
 # ---------------------------------------------------------------------------
@@ -324,14 +313,6 @@ out["x"] = np.asarray(gx)
 with open(sys.argv[3], "wb") as f:
     pickle.dump(out, f)
 """
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _reference_train(cfg_params, tcfg) -> dict:
@@ -441,58 +422,39 @@ def spec(tmp_path_factory):
     return types.SimpleNamespace(tmp=tmp, data=data, ranks={})
 
 
-def _outcomes(spec, world: int) -> list[dict]:
-    """Spawn `world` gloo ranks once per module (the 4-rank group first:
-    the 2-rank group restores its checkpoint); every rank's outcomes."""
-    for w in (4, 2):
-        if w not in spec.ranks:
-            mp.spawn(_ranks, args=(w, spec.tmp), nprocs=w, join=True)
-            outs = []
-            for r in range(w):
-                with open(os.path.join(spec.tmp, f"out{w}_{r}.pkl"), "rb") as f:
-                    outs.append(pickle.load(f))
-            spec.ranks[w] = outs
-        if w == world:
-            break
-    return spec.ranks[world]
 
-
-def _assert_case(spec, world: int, case) -> None:
-    for r, out in enumerate(_outcomes(spec, world)):
-        assert case in out, f"rank {r} never ran {case}"
-        assert out[case] is None, f"rank {r} of {world}, {case}:\n{out[case]}"
-
-
-@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("world", [4, 2])
 @pytest.mark.parametrize("case", ["psum", "a2a", "zero3", "bf16"])
 def test_expert_parallel_matches_single_device_moe(spec, world, case):
-    _assert_case(spec, world, ("ep", case))
+    """The module's first test; the 4-rank case comes first, so each group
+    is spawned under the time limit of a test of its own."""
+    assert_case(outcomes(_ranks, spec, world), ("ep", case))
 
 
 def test_expert_parallel_gradient_matches_reference_ep(spec):
     """The reference's EP gradient (2 forced host devices) is the
     single-device gradient; the port's on 2 gloo ranks equals it."""
-    _assert_case(spec, 2, "grad")
+    assert_case(outcomes(_ranks, spec, 2), "grad")
 
 
 @pytest.mark.parametrize("world", [2, 4])
 @pytest.mark.parametrize("length", DECODE_LENGTHS)
 def test_seq_shard_decode_matches_reference(spec, world, length):
-    _assert_case(spec, world, ("decode", length))
+    assert_case(outcomes(_ranks, spec, world), ("decode", length))
 
 
 def test_compressed_psum_matches_reference_round_trip(spec):
-    _assert_case(spec, 2, "compression")
+    assert_case(outcomes(_ranks, spec, 2), "compression")
 
 
 def test_model_ctx_prefill_with_expert_parallelism(spec):
-    _assert_case(spec, 2, "ctx")
+    assert_case(outcomes(_ranks, spec, 2), "ctx")
 
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_sharded_train_step_matches_reference(spec, world):
-    _assert_case(spec, world, ("train", world))
+    assert_case(outcomes(_ranks, spec, world), ("train", world))
 
 
 def test_elastic_restore_four_ranks_to_two(spec):
-    _assert_case(spec, 2, "elastic")
+    assert_case(outcomes(_ranks, spec, 2), "elastic")

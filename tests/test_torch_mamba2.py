@@ -33,14 +33,6 @@ SSD_WITNESS_RATIO = 1.5
 ELEM_ATOL = 1e-6
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.float().numpy()

@@ -40,14 +40,6 @@ MOE_BF16_ULPS = 2
 NEAR_TIE = 1e-5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def _configs(capacity_factor=1.25, mlp_variant="swiglu", shared=1):
     """The reduced deepseek-moe-16b (8 experts, top-2) in both packages."""
     out = []

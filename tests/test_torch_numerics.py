@@ -29,16 +29,6 @@ from repro_torch.quant.policies import TABLE1 as T_TABLE1
 FORMATS = ["Q9_7", "Q11_21", "INT8", "INT16"]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small tensors: one intra-op thread is as fast and leaves the other
-    cores to the test workers running beside this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 

@@ -1,7 +1,7 @@
 """The port's segment-parallel backend over `torch.distributed`, on the CPU.
 
-Each gloo group (2 ranks, then 4) is spawned once for the module with
-`torch.multiprocessing.spawn` and a `FileStore` under a temporary
+Each gloo group (4 ranks, then 2) is spawned once for the module with
+`gloo_group.outcomes` and a `FileStore` under a temporary
 directory. The parent makes every input from a seed and the reference's
 outputs with JAX; the ranks run the port and hold it to them, and each
 rank reports every case's outcome. Each test below reads one case.
@@ -33,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import pickle
-import traceback
+import time
 import types
 from datetime import timedelta
 
@@ -41,8 +41,9 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
+import gloo_group
+from gloo_group import assert_case, check, outcomes, run_ranks
 from repro_torch import interop
 from repro_torch.core import pipeline as tp
 from repro_torch.distributed import emvs as t_emvs
@@ -79,22 +80,12 @@ def _frames():
 # ---------------------------------------------------------------------------
 
 
-def _check(out: dict, name: str, fn) -> None:
-    """Run one case; record None, or the failure's traceback."""
-    try:
-        fn()
-        out[name] = None
-    except Exception:  # noqa: BLE001 — reported to the parent, which fails the test
-        out[name] = traceback.format_exc()
-
-
 def _equal(a: torch.Tensor, b, what: str) -> None:
     b = torch.as_tensor(np.asarray(b))
     assert a.shape == b.shape and torch.equal(a.to(b.dtype), b), what
 
 
 def _ranks(rank: int, world: int, tmp: str) -> None:
-    torch.set_num_threads(1)
     with open(os.path.join(tmp, "spec.pkl"), "rb") as f:
         spec = pickle.load(f)
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, f"store{world}"), world),
@@ -135,7 +126,7 @@ def _run_cases(rank: int, world: int, spec: dict, out: dict) -> None:
                              (s.depth_map.mask, b.depth_map.mask), (c.points, bc.points),
                              (c.valid, bc.valid)):
                     assert torch.equal(x, y)
-        _check(out, ("run", frac, quantized), run)
+        check(out, ("run", frac, quantized), run)
 
     if world == 2:
         _error_cases(cam, cfg, frames, out)
@@ -195,7 +186,7 @@ def _stream_cases(cam, cfg, spec, mesh, out: dict) -> None:
                 "segments", "dispatches", "padded_segments")}
             out["stream_buckets"] = engine._segment_buckets
             out["variant_space"] = engine._dispatcher.variant_space(24)
-        _check(out, ("stream", policy), single)
+        check(out, ("stream", policy), single)
 
     def multi():
         engine = t_stream.MultiStreamEngine(cam, cfg, opts, scfg(
@@ -209,7 +200,7 @@ def _stream_cases(cam, cfg, spec, mesh, out: dict) -> None:
         d = engine.stats["dispatcher"]
         assert d["cross_stream_dispatches"] >= 1 and d["pending_segments"] == 0, d
         out["multi_stats"] = dict(d)
-    _check(out, "multi", multi)
+    check(out, "multi", multi)
 
 
 def _step_cases(cam, spec, out: dict) -> None:
@@ -234,7 +225,7 @@ def _step_cases(cam, spec, out: dict) -> None:
                 err = float(np.abs(dsi.numpy() - dsi_ref.astype(np.float32)).max())
                 assert err < BILINEAR_ATOL, err
             _equal(mask, mask_ref, "mask")
-        _check(out, ("step", voting, vote_dtype), step)
+        check(out, ("step", voting, vote_dtype), step)
 
     def pod():
         rng = np.random.default_rng(0)
@@ -257,20 +248,12 @@ def _step_cases(cam, spec, out: dict) -> None:
             for x, y in zip(got, want):
                 assert torch.equal(x[k], y)
         assert int(got[0].sum()) > 0
-    _check(out, "pod", pod)
+    check(out, "pod", pod)
 
 
 # ---------------------------------------------------------------------------
 # The parent: inputs, reference outputs, one spawn per group size
 # ---------------------------------------------------------------------------
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -344,32 +327,17 @@ def _step_inputs() -> dict:
             "H": np.asarray(geoms.H), "phi": np.asarray(phi), "ref": ref}
 
 
-def _outcomes(spec, world: int) -> list[dict]:
-    """Spawn `world` gloo ranks once per module; every rank's outcomes."""
-    if world not in spec.ranks:
-        mp.spawn(_ranks, args=(world, spec.tmp), nprocs=world, join=True)
-        outs = []
-        for r in range(world):
-            with open(os.path.join(spec.tmp, f"out{world}_{r}.pkl"), "rb") as f:
-                outs.append(pickle.load(f))
-        spec.ranks[world] = outs
-    return spec.ranks[world]
 
-
-def _assert_case(spec, world: int, case) -> None:
-    for r, out in enumerate(_outcomes(spec, world)):
-        assert case in out, f"rank {r} never ran {case}"
-        assert out[case] is None, f"rank {r} of {world}, {case}:\n{out[case]}"
-
-
-@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("world", [4, 2])
 @pytest.mark.parametrize("frac,quantized", RUN_CASES)
 def test_run_emvs_sharded_matches_batched(spec, world, frac, quantized):
     """Sharded == the port's batched == the reference's batched, bitwise,
     on every rank; bucket segment counts of 4 and 2 (frac 0.05) and 9
-    (0.03) against 2 and 4 ranks exercise the padding."""
-    _assert_case(spec, world, ("run", frac, quantized))
-    for out in _outcomes(spec, world):
+    (0.03) against 2 and 4 ranks exercise the padding. The module's first
+    test; the 4-rank case comes first, so each group is spawned under the
+    time limit of a test of its own."""
+    assert_case(outcomes(_ranks, spec, world), ("run", frac, quantized))
+    for out in outcomes(_ranks, spec, world):
         assert out["mesh"] == (("segments",), (world,), "cpu")
 
 
@@ -392,24 +360,24 @@ def test_run_cases_cover_bucket_counts_off_and_on_rank_multiples(spec):
 
 @pytest.mark.parametrize("voting,vote_dtype", STEP_VOTINGS)
 def test_emvs_step_matches_reference(spec, voting, vote_dtype):
-    _assert_case(spec, 4, ("step", voting, vote_dtype))
+    assert_case(outcomes(_ranks, spec, 4), ("step", voting, vote_dtype))
 
 
 def test_emvs_step_pod_axis(spec):
-    _assert_case(spec, 4, "pod")
+    assert_case(outcomes(_ranks, spec, 4), "pod")
 
 
 @pytest.mark.parametrize("policy", ["latency", "throughput", "adaptive"])
 def test_stream_engine_sharded(spec, policy):
-    _assert_case(spec, 2, ("stream", policy))
-    stats = [out[("stream_stats", policy)] for out in _outcomes(spec, 2)]
+    assert_case(outcomes(_ranks, spec, 2), ("stream", policy))
+    stats = [out[("stream_stats", policy)] for out in outcomes(_ranks, spec, 2)]
     assert stats[0] == stats[1], "the ranks took different dispatch decisions"
     assert stats[0]["dispatches"] >= 1
 
 
 def test_multi_stream_engine_sharded(spec):
-    _assert_case(spec, 2, "multi")
-    outs = _outcomes(spec, 2)
+    assert_case(outcomes(_ranks, spec, 2), "multi")
+    outs = outcomes(_ranks, spec, 2)
     assert outs[0]["multi_stats"]["dispatches"] == outs[1]["multi_stats"]["dispatches"]
 
 
@@ -417,10 +385,10 @@ def test_stream_buckets_and_variant_space_match_reference(spec):
     from repro.serving import emvs_stream as j_stream
     from repro.serving.sweep_dispatcher import enumerate_variant_space
 
-    _assert_case(spec, 2, ("stream", "latency"))
+    assert_case(outcomes(_ranks, spec, 2), ("stream", "latency"))
     jcfg = j_stream.StreamConfig(sweep="sharded", segment_buckets=STREAM_BUCKETS)
     want = enumerate_variant_space(jcfg, 24, mesh_segments=2, formulation="kernel")
-    for out in _outcomes(spec, 2):
+    for out in outcomes(_ranks, spec, 2):
         assert out["stream_buckets"] == want["s_buckets"] == (2, 4, 6)
         assert out["variant_space"] == want
     tcfg = t_stream.StreamConfig(sweep="sharded", segment_buckets=STREAM_BUCKETS)
@@ -438,7 +406,7 @@ def test_errors_inside_the_group_match_reference(spec, monkeypatch):
     from repro.core.pipeline import SegmentBatch as JBatch
     from repro.distributed import emvs as j_emvs
 
-    outs = _outcomes(spec, 2)
+    outs = outcomes(_ranks, spec, 2)
     with pytest.raises(ValueError) as want:
         j_emvs.segment_axis_size(jax.make_mesh((1,), ("data",)))
     assert outs[0]["no_segments_axis"] == outs[1]["no_segments_axis"] == str(want.value)
@@ -528,3 +496,60 @@ def test_emvs_input_specs_match_reference():
         for k in want:
             assert tuple(got[k].shape) == tuple(want[k].shape)
             assert got[k].device.type == "meta" and got[k].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# The spawn helper of all three gloo modules
+# ---------------------------------------------------------------------------
+
+HELPER_DEADLINE_S = 15
+
+
+def _report(rank: int, world: int, tmp: str) -> None:
+    with open(os.path.join(tmp, f"out{world}_{rank}.pkl"), "wb") as f:
+        pickle.dump({"rank": rank, "threads": torch.get_num_threads()}, f)
+
+
+def _rank1_hangs(rank: int, world: int, tmp: str) -> None:
+    with open(os.path.join(tmp, f"pid{rank}"), "w") as f:
+        f.write(str(os.getpid()))
+    if rank == 1:
+        time.sleep(3600)
+    _report(rank, world, tmp)
+
+
+def test_run_ranks_hands_back_every_outcome(tmp_path):
+    """A group that returns: each rank's outcome in rank order, each rank
+    with its share of this process's torch threads."""
+    outs = run_ranks(_report, 2, str(tmp_path))
+    share = max(1, torch.get_num_threads() // 2)
+    assert outs == [{"rank": 0, "threads": share}, {"rank": 1, "threads": share}]
+
+
+def test_run_ranks_fails_at_its_deadline(tmp_path, monkeypatch):
+    """A rank that outwaits the deadline: the test fails within the
+    deadline plus 10 s, naming that rank (and rank 0 only if it had not
+    reported yet), and no rank is left alive. The module's next call for
+    that group fails at once with the same message and spawns nothing."""
+    monkeypatch.setattr(gloo_group, "RANKS_DEADLINE_S", HELPER_DEADLINE_S)
+    group = types.SimpleNamespace(tmp=str(tmp_path), ranks={})
+    start = time.monotonic()
+    with pytest.raises(pytest.fail.Exception) as failed:
+        outcomes(_rank1_hangs, group, 2, order=(2,))
+    assert time.monotonic() - start < HELPER_DEADLINE_S + 10
+    late = [1] if (tmp_path / "out2_0.pkl").exists() else [0, 1]
+    message = f"gloo ranks {late} of 2 had not returned within {HELPER_DEADLINE_S} s"
+    assert message in str(failed.value)
+    pids = [int(p.read_text()) for p in tmp_path.glob("pid*")]
+    assert pids or late == [0, 1]
+    for pid in pids:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
+
+    monkeypatch.setattr(gloo_group, "run_ranks", lambda *args: pytest.fail("spawned again"))
+    start = time.monotonic()
+    with pytest.raises(pytest.fail.Exception) as again:
+        outcomes(_rank1_hangs, group, 2, order=(2,))
+    assert time.monotonic() - start < 1
+    assert "the 2-rank gloo group failed in an earlier test" in str(again.value)
+    assert message in str(again.value)

@@ -54,7 +54,6 @@ import dataclasses
 import math
 import os
 import pickle
-import traceback
 import types
 from datetime import timedelta
 
@@ -62,9 +61,9 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 from torch.utils import _pytree as pytree
 
+from gloo_group import assert_case, check, outcomes
 from repro_torch import interop
 from repro_torch.configs import get_config
 
@@ -107,21 +106,11 @@ def _batches(spec) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def _check(out: dict, name, fn) -> None:
-    """Run one case; record None, or the failure's traceback."""
-    try:
-        fn()
-        out[name] = None
-    except Exception:  # noqa: BLE001 — reported to the parent, which fails the test
-        out[name] = traceback.format_exc()
-
-
 def _flat(tree) -> dict:
     return {pytree.keystr(p): x for p, x in pytree.tree_flatten_with_path(tree)[0]}
 
 
 def _ranks(rank: int, world: int, tmp: str) -> None:
-    torch.set_num_threads(1)
     with open(os.path.join(tmp, "spec.pkl"), "rb") as f:
         spec = pickle.load(f)
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, f"store{world}"), world),
@@ -174,7 +163,7 @@ def _train_cases(spec: dict, tmp: str, out: dict) -> None:
         local = sum(t.to_local().numel() * t.element_size()
                     for t in pytree.tree_leaves(placed.params))
         assert local == spec["rank_param_bytes"], (local, spec["rank_param_bytes"])
-    _check(out, "layout", layout)
+    check(out, "layout", layout)
 
     def grads():
         batch = _batches(spec)[0]
@@ -191,7 +180,7 @@ def _train_cases(spec: dict, tmp: str, out: dict) -> None:
             w = want[path]
             err = float(np.abs(g.numpy() - w).max())
             assert err <= GRAD_RTOL * float(np.abs(w).max()), (path, err)
-    _check(out, "grads", grads)
+    check(out, "grads", grads)
 
     def adamw():
         from torch.distributed.tensor import distribute_tensor
@@ -220,7 +209,7 @@ def _train_cases(spec: dict, tmp: str, out: dict) -> None:
                 local = distribute_tensor(b, mesh, a.placements, src_data_rank=None).to_local()
                 err = float((a.to_local() - local).abs().max())
                 assert err <= PARAM_ATOL, (pytree.keystr(path), err)
-    _check(out, "adamw", adamw)
+    check(out, "adamw", adamw)
 
     def train():
         step = make_train_step(cfg, opts, mesh)
@@ -249,7 +238,7 @@ def _train_cases(spec: dict, tmp: str, out: dict) -> None:
         if dist.get_rank() == 0:
             torch.save(whole, os.path.join(tmp, "saved_state.pt"))
         dist.barrier()
-    _check(out, "train", train)
+    check(out, "train", train)
 
 
 def _prefill_case(out: dict) -> None:
@@ -277,7 +266,7 @@ def _prefill_case(out: dict) -> None:
             for name, x, y in zip(a._fields, a, b):
                 err = float((x.full_tensor() - y).abs().max())
                 assert err <= PREFILL_ATOL * max(float(y.abs().max()), 1.0), (name, err)
-    _check(out, "prefill", run)
+    check(out, "prefill", run)
 
 
 def _restore_cases(tmp: str, out: dict) -> None:
@@ -313,20 +302,12 @@ def _restore_cases(tmp: str, out: dict) -> None:
                 for path, a in got.items():
                     assert a.dtype == want[path].dtype and torch.equal(a, want[path]), path
             assert int(back.opt.step) == int(saved.opt.step) == TRAIN_STEPS
-        _check(out, ("restore", shape), run)
+        check(out, ("restore", shape), run)
 
 
 # ---------------------------------------------------------------------------
 # The parent: inputs, both packages' unsharded steps, one spawn per group
 # ---------------------------------------------------------------------------
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jcfg():
@@ -412,51 +393,30 @@ def spec(tmp_path_factory):
     return types.SimpleNamespace(tmp=tmp, data=spec, ranks={})
 
 
-def _outcomes(spec, world: int) -> list[dict]:
-    """Spawn `world` gloo ranks once per module (the 4-rank group first:
-    the 2-rank group restores its checkpoint); every rank's outcomes."""
-    for w in (4, 2):
-        if w not in spec.ranks:
-            mp.spawn(_ranks, args=(w, spec.tmp), nprocs=w, join=True)
-            outs = []
-            for r in range(w):
-                with open(os.path.join(spec.tmp, f"out{w}_{r}.pkl"), "rb") as f:
-                    outs.append(pickle.load(f))
-            spec.ranks[w] = outs
-        if w == world:
-            break
-    return spec.ranks[world]
-
-
-def _assert_case(spec, world: int, case) -> None:
-    for r, out in enumerate(_outcomes(spec, world)):
-        assert case in out, f"rank {r} never ran {case}"
-        assert out[case] is None, f"rank {r} of {world}, {case}:\n{out[case]}"
-
 
 def test_stacked_leaf_holds_the_reference_bytes(spec):
-    _assert_case(spec, 4, "layout")
+    assert_case(outcomes(_ranks, spec, 4), "layout")
 
 
 def test_stacked_gradient_matches_reference(spec):
-    _assert_case(spec, 4, "grads")
+    assert_case(outcomes(_ranks, spec, 4), "grads")
 
 
 def test_adamw_on_the_mesh_layout_matches_unsharded(spec):
-    _assert_case(spec, 4, "adamw")
+    assert_case(outcomes(_ranks, spec, 4), "adamw")
 
 
 def test_fsdp_train_matches_unsharded_and_reference(spec):
-    _assert_case(spec, 4, "train")
+    assert_case(outcomes(_ranks, spec, 4), "train")
 
 
 @pytest.mark.parametrize("shape", RESTORE_MESHES)
 def test_elastic_restore_of_stacked_state_four_ranks_to_two(spec, shape):
-    _assert_case(spec, 2, ("restore", shape))
+    assert_case(outcomes(_ranks, spec, 2), ("restore", shape))
 
 
 def test_mamba_prefill_on_a_model_split_mesh(spec):
-    _assert_case(spec, 2, "prefill")
+    assert_case(outcomes(_ranks, spec, 2), "prefill")
 
 
 def test_stacked_checkpoint_restores_in_the_reference(spec):
@@ -469,7 +429,7 @@ def test_stacked_checkpoint_restores_in_the_reference(spec):
     from repro.training.train_step import TrainOptions as JTrainOptions
     from repro.training.train_step import init_train_state
 
-    _assert_case(spec, 4, "train")
+    assert_case(outcomes(_ranks, spec, 4), "train")
     jopts = JTrainOptions(microbatches=MICROBATCHES, remat=True,
                           param_dtype=jax.numpy.float32, opt=JO.AdamWConfig(**OPT))
     like = jax.eval_shape(lambda: init_train_state(jax.random.PRNGKey(0), _jcfg(), jopts))

@@ -48,16 +48,6 @@ POSE_ATOL = 2.5e-7
 W, H = 32, 24  # synthetic sensor of the reference's hygiene unit tests
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small tensors: one intra-op thread leaves the other cores to the
-    test workers running beside this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def cams():
     cam = JCamera()

@@ -32,14 +32,6 @@ from repro_torch.examples import emvs_streaming
 from repro_torch.profiling import CostTable
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 SMALL = ["--device", "cpu", "--steps", "24", "--points", "150", "--planes", "16"]
 
 

@@ -76,16 +76,6 @@ SCHEDULES = ("balanced", "bursty", "starved")
 KEYFRAME_FRAC = 0.03
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small tensors: one intra-op thread leaves the other cores to the
-    test workers running beside this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _cut(ev, keep):
     return tuple(a[:keep] for a in ev)
 

@@ -67,16 +67,6 @@ FAMILIES = {"dense": ("qwen3-8b", 2), "moe": ("deepseek-moe-16b", 2),
             "ssm": ("mamba2-2.7b", 2), "hybrid": ("jamba-1.5-large-398b", 8)}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """Small tensors: few intra-op threads leave the cores to the test
-    workers running beside this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def _configs(family: str):
     arch, n_layers = FAMILIES[family]
     return (dataclasses.replace(j_get_config(arch).reduced(), n_layers=n_layers),
