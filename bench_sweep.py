@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of the sweep kernel (B1) and the depth max/argmax (B2) at the
-EMVS main path's shapes, for the checkout this file sits in.
+"""Device time of the sweep kernel (B1), the depth max/argmax (B2) and the
+detection tail at the EMVS main path's shapes, for the checkout this file
+sits in.
 
     python3 bench_sweep.py
 
@@ -11,7 +12,11 @@ most segments: S=2 segments of C=40 frames) and its first segment alone
 (S=1). At each, B1 is first held bitwise against its plain version, then
 B1 and B2 are timed as device time (`chip_smoke.graph_ms`: a CUDA graph of
 20 calls replayed between CUDA events) beside the host-inclusive eager
-time (`chip_smoke.cuda_ms`). Uses only the package's public functions and
+time (`chip_smoke.cuda_ms`). The detection tail (threshold, depth, 3x3
+median) is timed on B2's output and, for DAVIS346, on seeded vote counts,
+as the eager PyTorch code of `core/detection.py` run on the card and, where
+the checkout has it, as the `detect_filter` kernel (held bitwise to the
+CPU path first). Uses only the package's public functions and
 the `chip_smoke.py` beside it, so a copy of this file at the root of
 another commit's tree (`git archive`, PR 13 or later) times that commit's
 kernels, built into that tree's own `build/`.
@@ -29,8 +34,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def main_bucket():
-    """`(xy0, valid, phi, cam, nz)`: B1's inputs for the main path's bucket
-    with most segments, as `run_emvs` builds them."""
+    """`(xy0, valid, phi, cam, nz, planes)`: B1's inputs for the main path's
+    bucket with most segments, as `run_emvs` builds them, and the planes."""
     import torch
 
     from repro_torch.core.camera import CameraModel
@@ -74,7 +79,49 @@ def main_bucket():
     # `canonical_inputs` hands it on
     xy0, valid, phi = canonical_inputs(batch.xy, batch.valid.bool(), geoms.H, phi,
                                        quantized=True, frame_valid=batch.frame_valid.bool())
-    return xy0, valid, phi, cam, dsi_cfg.num_planes
+    return xy0, valid, phi, cam, dsi_cfg.num_planes, planes
+
+
+def eager_tail(conf, zf, planes):
+    """`core/detection.py`'s CPU code for the tail, run on the card's tensors
+    as eager PyTorch launches."""
+    import torch
+
+    from repro_torch.core.detection import gaussian_blur, median_filter3
+
+    mask = (conf > gaussian_blur(conf, 2.5, 5) + 6.0) & (conf >= 3.0)
+    nz = planes.shape[0]
+    z_lo = torch.clamp(torch.floor(zf).to(torch.int64), 0, nz - 1)
+    z_hi = torch.clamp(z_lo + 1, 0, nz - 1)
+    frac = zf - z_lo.to(torch.float32)
+    depth = torch.addcmul(planes[z_lo] * (1.0 - frac), planes[z_hi], frac)
+    return median_filter3(depth, mask), mask
+
+
+def time_tail(conf, zf, planes) -> dict:
+    """Eager and (where the checkout has it) kernel times of the tail."""
+    import torch
+
+    from chip_smoke import cuda_ms, graph_ms
+    from repro_torch.core import detection
+
+    out = {"tail_eager_device_ms": graph_ms(lambda: eager_tail(conf, zf, planes)),
+           "tail_eager_ms": cuda_ms(lambda: eager_tail(conf, zf, planes), reps=7, inner=5)}
+    try:
+        from repro_torch.kernels.detect_filter.ops import detect_filter
+    except ImportError:
+        return out
+
+    def kernel():
+        return detect_filter(conf, zf, planes, detection._gaussian_taps(2.5, 5),
+                             threshold_c=6.0, min_votes=3.0, median_filter=True)
+
+    depth, mask = kernel()
+    want = detection.detect_and_filter_from(conf.cpu(), zf.cpu(), planes.cpu())
+    assert torch.equal(depth.cpu(), want.depth) and torch.equal(mask.cpu(), want.mask), \
+        "the detection tail differs from the CPU path"
+    out.update(tail_device_ms=graph_ms(kernel), tail_ms=cuda_ms(kernel, reps=7, inner=5))
+    return out
 
 
 def main() -> int:
@@ -91,7 +138,7 @@ def main() -> int:
     from repro_torch.kernels.local_max.kernel import depth_argmax_cuda
 
     card = card_line()
-    xy0, valid, phi, cam, nz = main_bucket()
+    xy0, valid, phi, cam, nz, planes = main_bucket()
     w, h = cam.width, cam.height
     for rows in (slice(None), slice(0, 1)):
         x0, y0 = xy0[rows, ..., 0].contiguous(), xy0[rows, ..., 1].contiguous()
@@ -106,12 +153,20 @@ def main() -> int:
                                                cy=cam.cy, w=w, h=h, quantize_plane_coords=True))
         assert torch.equal(stored, want), "B1 differs from its plain version"
         s, c, e = v.shape
+        conf, zf = depth_argmax_cuda(stored)
         print(json.dumps({
             "root": ROOT, "S": s, "C": c, "E": e, "Nz": nz, "w": w, "h": h,
             "b1_device_ms": graph_ms(b1), "b1_eager_ms": cuda_ms(b1, reps=7, inner=5),
             "b2_device_ms": graph_ms(lambda: depth_argmax_cuda(stored)),
-            "b2_eager_ms": cuda_ms(lambda: depth_argmax_cuda(stored), reps=7, inner=5)}),
-              flush=True)
+            "b2_eager_ms": cuda_ms(lambda: depth_argmax_cuda(stored), reps=7, inner=5),
+            **time_tail(conf, zf, planes)}), flush=True)
+    gen = torch.Generator().manual_seed(346)
+    for s in (2, 1):  # DAVIS346: vote counts with tall peaks, refined indices
+        conf = (torch.poisson(torch.full((s, 260, 346), 2.0), generator=gen)
+                + 40.0 * (torch.rand((s, 260, 346), generator=gen) < 0.05)).cuda()
+        zf = (torch.rand((s, 260, 346), generator=gen) * nz - 0.5).cuda()
+        print(json.dumps({"root": ROOT, "S": s, "Nz": nz, "w": 346, "h": 260,
+                          **time_tail(conf, zf, planes)}), flush=True)
     print(card)
     return 0
 

@@ -597,11 +597,13 @@ def assert_equal(a, b, what: str) -> None:
 def compare_b1_b2(xy0, valid, phi, *, cam, mode: str, quantized: bool, what: str,
                   band_rows: int | None = None):
     """Hold both kernels against their plain versions on one input, B1 with
-    `band_rows` rows a band (None: its band plan), each launched once.
+    `band_rows` rows a band (None: its band plan), each launched once, and
+    the detection tail on their (conf, zf) bitwise against the CPU path.
 
     Returns (B1 max abs error, B2 max abs error)."""
     import torch
 
+    from repro_torch.core.detection import detect_and_filter_from
     from repro_torch.kernels import cuda
     from repro_torch.kernels.backproject_vote.kernel import backproject_vote_cuda
     from repro_torch.kernels.backproject_vote.ref import backproject_vote_detect_ref
@@ -633,6 +635,13 @@ def compare_b1_b2(xy0, valid, phi, *, cam, mode: str, quantized: bool, what: str
     conf_p, zf_p = depth_argmax_ref(dsi)
     assert_equal(conf, conf_p, f"{what}: depth_argmax conf")
     assert_equal(zf, zf_p, f"{what}: depth_argmax zf")
+    planes = torch.linspace(0.6, 4.5, dsi.shape[-3])
+    n_tail = cuda.launch_counts["detect_filter"]
+    dm = detect_and_filter_from(conf, zf, planes.to(conf.device))
+    assert cuda.launch_counts["detect_filter"] == n_tail + 1, what
+    dm_p = detect_and_filter_from(conf.cpu(), zf.cpu(), planes)
+    assert_equal(dm.depth.cpu(), dm_p.depth, f"{what}: detection tail depth")
+    assert_equal(dm.mask.cpu(), dm_p.mask, f"{what}: detection tail mask")
     err2 = max(float((conf - conf_p).abs().max()), float((zf - zf_p).abs().max()))
     return err1, err2
 
@@ -2989,8 +2998,8 @@ def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
         f"{cap * ev} votes; the float store holds {cap * ev}, the int16 store "
         "saturates at 32767; both bitwise the plain version")
 
-    # 9e. a warm run_emvs launches B1 and B2 once per bucket (the custom
-    # operations add no launch)
+    # 9e. a warm run_emvs launches B1, B2 and the detection tail once per
+    # bucket (the custom operations add no launch)
     n_buckets = len({bucket_capacity(b - a) for a, b in plan_segments(frames, dsi_cfg, opts)})
     run_emvs(cam, dsi_cfg, frames, opts)
     torch.cuda.synchronize()
@@ -2998,7 +3007,8 @@ def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
     run_emvs(cam, dsi_cfg, frames, opts)
     torch.cuda.synchronize()
     warm = dict(cuda.launch_counts)
-    assert warm == {"backproject_vote": n_buckets, "depth_argmax": n_buckets}, warm
+    assert warm == {"backproject_vote": n_buckets, "depth_argmax": n_buckets,
+                    "detect_filter": n_buckets}, warm
     log(f"warm run_emvs launches {warm} ({n_buckets} buckets)")
     out["warm_launches"] = warm
     log(f"tooling phase: {time.perf_counter() - t_phase:.1f} s")

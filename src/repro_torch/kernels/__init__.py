@@ -11,6 +11,11 @@ Kernels:
                      (plane, segment) with a shared-memory accumulator.
   local_max        — depth max/argmax + parabola refinement, one thread
                      per pixel.
+  detect_filter    — the detection tail (adaptive threshold, depth
+                     interpolation, 3x3 median), one CTA per (segment,
+                     32x8 tile); it replaces no TPU kernel, and its plain
+                     version is `core/detection.py`'s eager code, so the
+                     package has no `ref.py`.
   flash_attention  — causal/GQA softmax attention with an online softmax,
                      one CTA per (query tile, batch*head) looping over
                      KV tiles: wgmma on bf16 operands fed by a TMA ring

@@ -8,7 +8,9 @@ that has only PyTorch:
 
 Nearest voting is bitwise on dsi, conf and zf; bilinear dsi within
 BILINEAR_ATOL/RTOL (float atomics reorder the sum of fractional weights);
-the depth max/argmax kernel is bitwise on any stored DSI. Flash attention
+the depth max/argmax kernel is bitwise on any stored DSI; the detection
+tail kernel is bitwise the CPU path on depth, mask and confidence, at any
+plane size and on a sweep at the offline cell's configuration. Flash attention
 is held to its plain version within the reference's own tolerances
 (`tests/test_kernels.py`): 2e-5 in float32, 2e-2 in bfloat16 (the sums
 run in another order, the tensor-core route rounds the probabilities to
@@ -33,6 +35,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import detection
 from repro_torch.core import pipeline as tp
 from repro_torch.core.camera import CAMERAS, CameraModel
 from repro_torch.core.dsi import DSIConfig
@@ -52,6 +55,7 @@ from repro_torch.kernels.backproject_vote.kernel import (
     kernel_smem_bytes,
     smem_bytes,
 )
+from repro_torch.kernels.detect_filter.kernel import detect_filter_cuda
 from repro_torch.kernels.flash_attention.kernel import route
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -231,6 +235,8 @@ def test_cuda_run_emvs_kernel_matches_scatter(dev):
         got = run_emvs(cam, cfg, frames, opts, device=dev)
         assert cuda.launch_counts["backproject_vote"] > 0
         assert cuda.launch_counts["depth_argmax"] > 0
+        # one launch of the detection tail a bucket, as B1's
+        assert cuda.launch_counts["detect_filter"] == cuda.launch_counts["backproject_vote"]
         ref = run_emvs(cam, cfg, frames,
                        EMVSOptions(formulation="scatter", quantized=quantized,
                                    keyframe_dist_frac=0.05), device=dev)
@@ -261,6 +267,87 @@ def test_cuda_run_emvs_davis346_kernel_matches_scatter(dev):
             assert torch.equal(a.dsi.float(), b.dsi.float())
             assert torch.equal(a.depth_map.depth, b.depth_map.depth)
             assert torch.equal(a.depth_map.mask, b.depth_map.mask)
+
+
+def _tail_inputs(seed: int, s: int, h: int, w: int, nz: int = 16):
+    """Vote counts with a few tall peaks and refined plane indices past both
+    ends of the planes (the clamps)."""
+    rng = np.random.default_rng(seed)
+    conf = rng.poisson(2.0, (s, h, w)) + 40 * (rng.random((s, h, w)) < 0.05)
+    conf = conf.astype(np.float32) + rng.choice([0.0, 0.25], (s, h, w)).astype(np.float32)
+    zf = rng.uniform(-1.5, nz + 0.5, (s, h, w)).astype(np.float32)
+    planes = np.sort(rng.uniform(0.6, 4.5, nz)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (conf, zf, planes)]
+
+
+def _tail(conf, zf, planes, radius, median_filter, **kw):
+    if radius == detection.ADAPTIVE_RADIUS:
+        return detection.detect_and_filter_from(conf, zf, planes,
+                                                median_filter=median_filter, **kw)
+    dm = detection.detect_structure_from(conf, zf, planes, adaptive_radius=radius, **kw)
+    return detection._median_tail(dm, median_filter)
+
+
+def _assert_same_depth_map(got, want):
+    assert torch.equal(got.mask.cpu(), want.mask)
+    assert torch.equal(got.depth.cpu().view(torch.int32), want.depth.view(torch.int32))
+    assert torch.equal(got.confidence.cpu(), want.confidence)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [5, 2])
+@pytest.mark.parametrize("median_filter", [True, False])
+@pytest.mark.parametrize("S", [1, 2, 3])
+@pytest.mark.parametrize("H,W", [(180, 240), (260, 346), (5, 7), (1, 1), (2, 3), (4, 6)])
+def test_cuda_detect_filter_matches_cpu(dev, H, W, S, median_filter, radius):
+    """The detection tail, one launch, bitwise the CPU path on depth, mask
+    and confidence: both sensors, a small plane, one pixel, planes smaller
+    than the halo; radius 2 through `detect_structure_from`."""
+    conf, zf, planes = _tail_inputs(H * 1000 + W * 10 + S, S, H, W)
+    n0 = cuda.launch_counts["detect_filter"]
+    got = _tail(conf.to(dev), zf.to(dev), planes.to(dev), radius, median_filter)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["detect_filter"] == n0 + 1
+    _assert_same_depth_map(got, _tail(conf, zf, planes, radius, median_filter))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("median_filter", [True, False])
+@pytest.mark.parametrize("threshold_c,min_votes", [(6.0, 3.0), (1.0, 1.0)])
+def test_cuda_detect_filter_on_a_sweep(dev, median_filter, threshold_c, min_votes):
+    """conf and zf from B1 and B2 at the offline cell's configuration
+    (DAVIS240, 128 planes, nearest, Table-1 quantized): the tail on the card
+    is bitwise the CPU path's."""
+    cam = CameraModel()
+    scene = make_scene(SceneConfig(points_per_plane=600))
+    traj = make_trajectory("simulation_3planes", 48, device=dev)
+    frames = aggregate(cam, simulate_events(cam, scene, traj, device=dev), traj,
+                       events_per_frame=1024, pose_extrapolation="clamp", device=dev)
+    cfg = DSIConfig.for_camera(cam, num_planes=128, z_min=0.6, z_max=4.5)
+    opts = EMVSOptions(formulation="kernel", quantized=True, keyframe_dist_frac=0.05)
+    res = run_emvs(cam, cfg, frames, opts, device=dev)
+    conf, zf = depth_argmax(torch.stack([seg.dsi for seg in res.segments]))
+    planes = cfg.planes(device=dev)
+    kw = dict(threshold_c=threshold_c, min_votes=min_votes, median_filter=median_filter)
+    got = detection.detect_and_filter_from(conf, zf, planes, **kw)
+    want = detection.detect_and_filter_from(conf.cpu(), zf.cpu(), planes.cpu(), **kw)
+    assert conf.shape[0] >= 2 and int(want.mask.sum()) > 100
+    _assert_same_depth_map(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_detect_filter_refuses(dev):
+    conf, zf, planes = (t.to(dev) for t in _tail_inputs(3, 1, 8, 8))
+    taps = detection._gaussian_taps(2.5, 5)
+    kw = dict(threshold_c=6.0, min_votes=3.0, median_filter=True)
+    with pytest.raises(ValueError, match="radius must be at most 8"):
+        detection.detect_structure_from(conf, zf, planes, adaptive_radius=9)
+    with pytest.raises(TypeError, match="float32"):
+        detect_filter_cuda(conf.double(), zf, planes, taps, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        detect_filter_cuda(conf, zf, planes.double(), taps, **kw)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        detect_filter_cuda(conf.cpu(), zf.cpu(), planes.cpu(), taps, **kw)
 
 
 @pytest.mark.gpu
@@ -423,7 +510,7 @@ def test_cuda_stream_engine_matches_run_emvs(dev, policy):
         got = engine.flush()
         n = engine.stats["dispatches"]
         assert n >= 1 and cuda.launch_counts["backproject_vote"] == n
-        assert cuda.launch_counts["depth_argmax"] == n
+        assert cuda.launch_counts["depth_argmax"] == cuda.launch_counts["detect_filter"] == n
         assert [s.frame_range for s in got.segments] == [s.frame_range for s in ref.segments]
         for a, b in zip(got.segments, ref.segments):
             assert a.dsi.is_cuda

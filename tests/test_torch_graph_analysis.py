@@ -132,7 +132,8 @@ def test_kernel_sweep_materializes_no_float32_volume_matmul_does():
                 ("float32", vol) in o.outputs]
     assert f32_vols == []
     names = [o.name for o in mode_k.ops if o.name.startswith("repro_torch.")]
-    assert names == ["repro_torch.backproject_vote.default", "repro_torch.depth_argmax.default"]
+    assert names == ["repro_torch.backproject_vote.default", "repro_torch.depth_argmax.default",
+                     "repro_torch.detect_filter.default"]
     _, _, mode_m = _sweep_stats("matmul", "meta")
     f32_m = [o for o in mode_m.ops if o.materializes and
              any(dt == "float32" and len(sh) >= 3 and sh[-3:] == vol[-3:]
