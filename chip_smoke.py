@@ -2999,8 +2999,10 @@ def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
         "saturates at 32767; both bitwise the plain version")
 
     # 9e. a warm run_emvs launches B1, B2 and the detection tail once per
-    # bucket (the custom operations add no launch)
+    # bucket (the custom operations add no launch), and each B1 launch adds
+    # its row bands under `backproject_vote_bands`
     n_buckets = len({bucket_capacity(b - a) for a, b in plan_segments(frames, dsi_cfg, opts)})
+    n_bands = -(-cam.height // band_rows_of(cam.width, cam.height))
     run_emvs(cam, dsi_cfg, frames, opts)
     torch.cuda.synchronize()
     cuda.launch_counts.clear()
@@ -3008,7 +3010,8 @@ def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
     torch.cuda.synchronize()
     warm = dict(cuda.launch_counts)
     assert warm == {"backproject_vote": n_buckets, "depth_argmax": n_buckets,
-                    "detect_filter": n_buckets}, warm
+                    "detect_filter": n_buckets,
+                    "backproject_vote_bands": n_buckets * n_bands}, warm
     log(f"warm run_emvs launches {warm} ({n_buckets} buckets)")
     out["warm_launches"] = warm
     log(f"tooling phase: {time.perf_counter() - t_phase:.1f} s")

@@ -186,6 +186,8 @@ def _backproject_vote_op(x0: Tensor, y0: Tensor, valid: Tensor, phi: Tensor,
             int(bilinear), int(quantized), cuda.current_stream(x0.device))
         cuda.check(err, "backproject_vote_launch")
         cuda.launch_counts["backproject_vote"] += 1
+        # band CTAs per plane and segment: how many times the launch streams each event
+        cuda.launch_counts["backproject_vote_bands"] += -(-h // band_rows)
     return dsi
 
 

@@ -8,7 +8,9 @@ asking for a kernel there raises.
 
 `launch_counts` holds one plain integer per kernel. A launcher adds one
 exactly where it enqueues its kernel, so a caller can zero the counts,
-drive a path and read which kernels that path launched.
+drive a path and read which kernels that path launched. One key is not a
+launch count: `backproject_vote_bands` adds each B1 launch's row bands
+(its CTAs per plane and segment), so it counts work units, not launches.
 """
 from __future__ import annotations
 

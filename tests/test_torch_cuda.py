@@ -205,6 +205,22 @@ def test_cuda_forced_bands(dev, band_rows, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("W,H,bands", [(240, 180, 1), (346, 260, 2)])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cuda_band_counter(dev, W, H, bands, quantized):
+    """One B1 launch adds its row bands to `backproject_vote_bands`: one at
+    DAVIS240, two at DAVIS346, whatever the store."""
+    xy0, valid, phi = (t.to(dev) for t in _inputs(W, 2, 3, 256, 4, W, H))
+    n0 = dict(cuda.launch_counts)
+    backproject_vote_cuda(xy0[..., 0], xy0[..., 1], valid, phi, cx=W / 2, cy=H / 2,
+                          w=W, h=H, quantized=quantized)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["backproject_vote"] == n0.get("backproject_vote", 0) + 1
+    assert cuda.launch_counts["backproject_vote_bands"] == (
+        n0.get("backproject_vote_bands", 0) + bands)
+
+
+@pytest.mark.gpu
 def test_cuda_band_plan_matches_the_kernel(dev):
     """The wrapper's shared-memory count is the kernel's own, and a band
     height of 0 is refused before any launch."""

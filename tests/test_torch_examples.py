@@ -68,6 +68,9 @@ def test_davis346_kernel_formulation_matches_the_reference(davis346_frames, quan
         np.testing.assert_array_equal(a.dsi.numpy(), np.asarray(b.dsi))
         np.testing.assert_array_equal(a.depth_map.depth.numpy(), np.asarray(b.depth_map.depth))
         np.testing.assert_array_equal(a.depth_map.mask.numpy(), np.asarray(b.depth_map.mask))
+        # Table 1's 8-bit plane coordinates cannot address a column past 255;
+        # the float32 path votes there
+        assert (int(a.dsi[..., 256:].float().sum()) > 0) == (not quantized)
     assert all(int(s.depth_map.mask.sum()) > 0 for s in got.segments)
 
 
