@@ -36,14 +36,18 @@ Phases, each asserting, none caught:
      share, cross-checks B1's device time against the profiler's, times
      the plain versions, prints B1's band plan and shared memory per CTA,
      the run_emvs wall time, and profiles one warm run_emvs (device-kernel
-     time, busy share, top ops);
+     time, busy share, top ops); the front-end kernel (canonical_project)
+     at that bucket, bitwise the CPU's eager front end, its device and
+     host-inclusive times beside its bytes bound and the eager chain's
+     launches and times on the card;
   4b. drives the same scene, trajectory and options through a DAVIS346
      (346x260, MVSEC intrinsics; B1 in two row bands): launch counts
      zeroed before and read after each run, kernel == scatter bitwise on
      dsi, depth and mask, float and quantized, mean AbsRel on the float
      datapath below 0.25, the warm wall and a profile of one warm run,
      and B1's device time at the bucket with most segments beside its
-     bound and its plain version's time;
+     bound and its plain version's time; the front-end kernel there on the
+     float32 datapath, as in phase 5;
   4c. runs the paper's Fig 4a, 4b and 7a (`repro_torch.benchmarks`, the
      reference's sequences and sizes) and Table 3 on the card: every
      kernel row equals its matmul row and every claim holds;
@@ -113,7 +117,8 @@ Phases, each asserting, none caught:
      baseline; B1 at the linter's proof capacity (64 frames x 1024 events,
      every event on one voxel of every plane: 65,536 votes) must equal its
      plain version bitwise, float (65,536) and quantized (saturated at
-     32,767); a warm run_emvs launches B1 and B2 once per bucket;
+     32,767); a warm run_emvs launches the front end, B1, B2 and the
+     detection tail once per bucket;
   6. holds the flash-attention kernels against their plain version on the
      card, within the reference's tolerances (FLASH_TOL): the serving
      shapes (1, 32, S, 128) over (1, 8, S, 128) for S in 32, 128, 512,
@@ -2229,33 +2234,86 @@ def emvs_frames(cam, scene):
     return events, aggregate(cam, events, traj, events_per_frame=1024), traj
 
 
-def main_bucket(cam, dsi_cfg, frames, opts):
-    """The sweep kernel's inputs `(xy0, valid, phi)` for the capacity bucket
-    with most segments, as `run_emvs` builds them."""
-    import torch
-
-    from repro_torch.core.geometry import SE3
-    from repro_torch.core.pipeline import (
-        bucket_capacity,
-        pad_segments,
-        plan_segments,
-        precompute_batch_geometry,
-    )
-    from repro_torch.kernels.backproject_vote.ops import canonical_inputs
+def main_batch(cam, dsi_cfg, frames, opts):
+    """The capacity bucket with most segments as `run_emvs` pads it (a
+    `SegmentBatch`)."""
+    from repro_torch.core.pipeline import bucket_capacity, pad_segments, plan_segments
 
     by_cap: dict[int, list] = {}
     for seg in plan_segments(frames, dsi_cfg, opts):
         by_cap.setdefault(bucket_capacity(seg[1] - seg[0]), []).append(seg)
     cap = max(by_cap, key=lambda c: len(by_cap[c]))
-    batch = pad_segments(frames, by_cap[cap], cap)
+    return pad_segments(frames, by_cap[cap], cap)
+
+
+def main_bucket(cam, dsi_cfg, frames, opts):
+    """The sweep kernel's inputs `(xy0, valid, phi)` for the capacity bucket
+    with most segments, as the eager front end builds them."""
+    from repro_torch.core.pipeline import canonical_inputs_eager
+
+    batch = main_batch(cam, dsi_cfg, frames, opts)
     planes = dsi_cfg.planes(device=frames.xy.device)
-    geoms = precompute_batch_geometry(
-        cam, batch.poses_R, batch.poses_t,
-        SE3(batch.ref_R[:, None], batch.ref_t[:, None]), planes,
-        planes[dsi_cfg.num_planes // 2])
-    phi = torch.stack([geoms.phi.alpha, geoms.phi.beta_x, geoms.phi.beta_y], -1)
-    return canonical_inputs(batch.xy, batch.valid, geoms.H, phi,
-                            quantized=opts.quantized, frame_valid=batch.frame_valid)
+    return canonical_inputs_eager(cam, batch, planes, planes[dsi_cfg.num_planes // 2],
+                                  quantized=opts.quantized)
+
+
+def front_end_timings(card: str, cam, dsi_cfg, frames, opts) -> dict:
+    """The front-end kernel at the bucket with most segments: one launch,
+    bitwise the CPU's eager front end on xy0, valid and phi; its device time
+    (a CUDA graph of GRAPH_CALLS calls) and host-inclusive eager time beside
+    its bytes bound and the eager chain it replaces on the card (its launches
+    under the profiler, its times, and how many of its values differ from the
+    CPU's)."""
+    import torch
+
+    from repro_torch.core.pipeline import SegmentBatch, canonical_inputs_eager
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.canonical_project.ops import canonical_project
+    from repro_torch.launch.roofline import bound_ms, canonical_project_bytes
+
+    batch = main_batch(cam, dsi_cfg, frames, opts)
+    planes = dsi_cfg.planes(device=batch.xy.device)
+    z0 = planes[dsi_cfg.num_planes // 2]
+    s, c, e = batch.valid.shape
+    nz = dsi_cfg.num_planes
+    shape_note = (f"S={s} C={c} E={e} Nz={nz} {cam.width}x{cam.height} "
+                  + ("Table 1" if opts.quantized else "float32"))
+
+    def kernel():
+        return canonical_project(cam, batch, planes, z0, quantized=opts.quantized)
+
+    def eager():
+        return canonical_inputs_eager(cam, batch, planes, z0, quantized=opts.quantized)
+
+    def bits(t):
+        t = t.cpu()
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    n0 = cuda.launch_counts["canonical_project"]
+    got = kernel()
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["canonical_project"] == n0 + 1, shape_note
+    want = canonical_inputs_eager(cam, SegmentBatch(*(t.cpu() for t in batch)),
+                                  planes.cpu(), z0.cpu(), quantized=opts.quantized)
+    eager_off = {}
+    for name, a, b, d in zip(("xy0", "valid", "phi"), got, want, eager()):
+        assert_equal(bits(a), bits(b), f"canonical_project {name} at {shape_note} vs the "
+                     "CPU's eager front end")
+        eager_off[name] = int((bits(d) != bits(b)).sum())
+    row = {"shape": shape_note, "device_ms": graph_ms(kernel),
+           "ms": cuda_ms(kernel, reps=7, inner=5), "eager_device_ms": graph_ms(eager),
+           "eager_ms": cuda_ms(eager, reps=7, inner=5), "eager_vs_cpu": eager_off}
+    # bytes bound: its few operations an event are far below the float32 rate
+    row["bound_ms"], row["bound_by"] = bound_ms(canonical_project_bytes(s, c, e, nz), 0.0)
+    row["eager_launches"] = sum(log_breakdown(card, f"eager front end at {shape_note}",
+                                              eager, top=5).values())
+    log(f"[{card}] canonical_project at {shape_note}: bitwise the CPU's eager front end; "
+        f"device {row['device_ms']:.4f} ms (CUDA graph of {GRAPH_CALLS}), host-inclusive "
+        f"eager {row['ms']:.4f} ms; bound {row['bound_ms']:.5f} ms ({row['bound_by']}); the "
+        f"eager chain on the card: {row['eager_launches']} launches, device "
+        f"{row['eager_device_ms']:.4f} ms, host-inclusive {row['eager_ms']:.4f} ms, values "
+        f"off the CPU's {eager_off}")
+    return row
 
 
 def davis346_phase(card: str, scene, main_cfg, opts) -> dict:
@@ -2289,7 +2347,7 @@ def davis346_phase(card: str, scene, main_cfg, opts) -> dict:
         result = run_emvs(cam, dsi_cfg, frames, o)
         torch.cuda.synchronize()
         launches[quantized] = dict(cuda.launch_counts)
-        for name in ("backproject_vote", "depth_argmax"):
+        for name in ("canonical_project", "backproject_vote", "depth_argmax"):
             assert launches[quantized].get(name, 0) > 0, f"DAVIS346 never launched {name}"
         plain = run_emvs(cam, dsi_cfg, frames, dataclasses.replace(o, formulation="scatter"))
         assert len(plain.segments) == len(result.segments) >= 2
@@ -2323,6 +2381,8 @@ def davis346_phase(card: str, scene, main_cfg, opts) -> dict:
     wall = statistics.median(walls)
     log_breakdown(card, "DAVIS346 run_emvs", lambda: run_emvs(cam, dsi_cfg, frames, opts))
 
+    front = front_end_timings(card, cam, dsi_cfg, frames,
+                              dataclasses.replace(opts, quantized=False))
     xy0, valid, phi = main_bucket(cam, dsi_cfg, frames, opts)
     s, c, e = valid.shape
     nz, h, w = dsi_cfg.shape
@@ -2345,7 +2405,7 @@ def davis346_phase(card: str, scene, main_cfg, opts) -> dict:
         f"plain {plain_ms:.2f} ms")
     return {"device_ms": device_ms, "bound_ms": bound, "n_bands": n_bands, "wall_ms": 1e3 * wall,
             "absrel": absrels, "launches": launches[True], "shape": shape_note,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "front_end": front}
 
 
 def paper_tables(card: str) -> dict:
@@ -2535,7 +2595,7 @@ def streaming_phase(card: str, cam, dsi_cfg, opts, events, traj) -> dict:
             launches = dict(cuda.launch_counts)
             st = e.stats
             assert_same_results(result, base, f"stream {policy} chunk {chunk}")
-            for name in ("backproject_vote", "depth_argmax"):
+            for name in ("canonical_project", "backproject_vote", "depth_argmax"):
                 assert launches.get(name, 0) == st["dispatches"], (policy, chunk, name, launches)
             counts[(chunk, policy)] = (st["dispatches"], st["coalesced_segments"],
                                        st["padded_segments"], st["segments"])
@@ -2723,7 +2783,7 @@ def sharded_phase(card: str, cam, dsi_cfg, opts, events, frames, traj) -> dict:
         sharded = run_emvs(cam, dsi_cfg, frames, opts, sweep="sharded", mesh=mesh)
         torch.cuda.synchronize()
         launches = dict(cuda.launch_counts)
-        for name in ("backproject_vote", "depth_argmax"):
+        for name in ("canonical_project", "backproject_vote", "depth_argmax"):
             assert launches.get(name, 0) == n_buckets, (name, launches, n_buckets)
         assert_same_results(sharded, batched, "run_emvs sharded vs batched")
         stored = dsi_lib.to_storage(torch.stack([s.dsi for s in batched.segments]))
@@ -2766,7 +2826,7 @@ def sharded_phase(card: str, cam, dsi_cfg, opts, events, frames, traj) -> dict:
             result, _, _ = stream_feed(e, host_events, host_traj, chunk, gated=True)
             stream_launches = dict(cuda.launch_counts)
             assert_same_results(result, base, f"sharded stream {policy}")
-            for name in ("backproject_vote", "depth_argmax"):
+            for name in ("canonical_project", "backproject_vote", "depth_argmax"):
                 assert stream_launches.get(name, 0) == e.stats["dispatches"], (
                     policy, name, stream_launches)
             counts[policy] = e.stats["dispatches"]
@@ -2998,9 +3058,9 @@ def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
         f"{cap * ev} votes; the float store holds {cap * ev}, the int16 store "
         "saturates at 32767; both bitwise the plain version")
 
-    # 9e. a warm run_emvs launches B1, B2 and the detection tail once per
-    # bucket (the custom operations add no launch), and each B1 launch adds
-    # its row bands under `backproject_vote_bands`
+    # 9e. a warm run_emvs launches the front end, B1, B2 and the detection
+    # tail once per bucket (the custom operations add no launch), and each B1
+    # launch adds its row bands under `backproject_vote_bands`
     n_buckets = len({bucket_capacity(b - a) for a, b in plan_segments(frames, dsi_cfg, opts)})
     n_bands = -(-cam.height // band_rows_of(cam.width, cam.height))
     run_emvs(cam, dsi_cfg, frames, opts)
@@ -3009,8 +3069,8 @@ def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
     run_emvs(cam, dsi_cfg, frames, opts)
     torch.cuda.synchronize()
     warm = dict(cuda.launch_counts)
-    assert warm == {"backproject_vote": n_buckets, "depth_argmax": n_buckets,
-                    "detect_filter": n_buckets,
+    assert warm == {"canonical_project": n_buckets, "backproject_vote": n_buckets,
+                    "depth_argmax": n_buckets, "detect_filter": n_buckets,
                     "backproject_vote_bands": n_buckets * n_bands}, warm
     log(f"warm run_emvs launches {warm} ({n_buckets} buckets)")
     out["warm_launches"] = warm
@@ -3088,7 +3148,7 @@ def main() -> int:
         f"{frames.xy.shape[0]} frames -> {len(result.segments)} segments in "
         f"{t_main:.3f} s (cold), launches {launches}")
     assert len(result.segments) >= 2, f"expected >= 2 segments, got {len(result.segments)}"
-    for name in ("backproject_vote", "depth_argmax"):
+    for name in ("canonical_project", "backproject_vote", "depth_argmax"):
         assert launches.get(name, 0) > 0, f"the main path never launched {name}"
 
     plain = run_emvs(cam, dsi_cfg, frames, dataclasses.replace(opts, formulation="scatter"))
@@ -3173,6 +3233,7 @@ def main() -> int:
             f"{b2_bound / row['b2_device_ms']:.3f}"
             + (f"; plain {row['b2_plain_ms']:.4f} ms" if label == "main" else ""))
     main_row = timed["main"]
+    front = front_end_timings(card, cam, dsi_cfg, frames, opts)
 
     walls = []
     for _ in range(3):
@@ -3273,6 +3334,17 @@ def main() -> int:
          "bound_ms": main_row["b2_bound_ms"], "bound_by": main_row["b2_bound_by"],
          "library_ms": None, "device_ms": main_row["b2_device_ms"],
          "device_ms_s1": timed["S=1"]["b2_device_ms"]},
+        {"name": "canonical_project", "route": "cuda",
+         "source": "src/repro_torch/csrc/canonical_project.cu", "replaces": None,
+         "launches": launches.get("canonical_project", 0),
+         "launches_streaming": stream["launches"].get("canonical_project", 0),
+         "launches_sharded": sharded["launches"].get("canonical_project", 0),
+         "launches_warm": tooling["warm_launches"]["canonical_project"],
+         "ms": front["ms"], "device_ms": front["device_ms"], "bound_ms": front["bound_ms"],
+         "bound_by": front["bound_by"], "plain_ms": front["eager_ms"],
+         "plain_device_ms": front["eager_device_ms"],
+         "plain_launches": front["eager_launches"], "shape": front["shape"],
+         "davis346": d346["front_end"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:101",

@@ -8,9 +8,10 @@ capacities (`pad_segments`); each capacity bucket is swept in one call of
 Padded frames repeat a real frame and vote with weight 0.
 
 Three interchangeable voting formulations:
-  * "kernel"  — the CUDA sweep kernel (vote + int16 store) and the depth
-    max/argmax kernel, one launch each per bucket; on the CPU, their plain
-    versions;
+  * "kernel"  — the CUDA front-end kernel (frame geometry, Table 1, the
+    homography), the sweep kernel (vote + int16 store) and the depth
+    max/argmax kernel, one launch each per bucket; on the CPU, the eager
+    front end and the kernels' plain versions;
   * "scatter" — plain PyTorch scatter-add, frame by frame;
   * "matmul"  — plain PyTorch one-hot products, frame by frame.
 All three agree bitwise on the nearest-voting datapaths (float and
@@ -46,7 +47,8 @@ from repro_torch.core.pointcloud import PointCloud, depth_map_to_points, depth_m
 from repro_torch.core.voting import vote_onehot_matmul, vote_scatter
 from repro_torch.device import resolve_device, to_host
 from repro_torch.events.aggregation import EventFrames
-from repro_torch.kernels.backproject_vote.ops import backproject_vote_frames
+from repro_torch.kernels.backproject_vote.ops import backproject_vote_detect, canonical_inputs
+from repro_torch.kernels.canonical_project.ops import canonical_project
 from repro_torch.quant.policies import TABLE1, EMVSQuantPolicy
 
 Tensor = torch.Tensor
@@ -642,6 +644,19 @@ def precompute_segment_geometry(
                                      T_w_ref, planes, z0)
 
 
+def canonical_inputs_eager(cam: CameraModel, batch: SegmentBatch, planes: Tensor,
+                           z0: Tensor, *, quantized: bool) -> tuple[Tensor, Tensor, Tensor]:
+    """The kernel formulation's front end as eager operations (the CPU
+    path, which `canonical_project`'s kernel equals bit for bit)."""
+    T_w_ref = SE3(batch.ref_R[:, None], batch.ref_t[:, None])
+    geoms = precompute_batch_geometry(cam, batch.poses_R, batch.poses_t,
+                                      T_w_ref, planes, z0)  # (S, C, ...)
+    phi = torch.stack([geoms.phi.alpha, geoms.phi.beta_x, geoms.phi.beta_y],
+                      dim=-1)  # (S, C, Nz, 3)
+    return canonical_inputs(batch.xy, batch.valid, geoms.H, phi, quantized=quantized,
+                            frame_valid=batch.frame_valid)
+
+
 def sweep_segment_batch(
     cam: CameraModel,
     dsi_cfg: DSIConfig,
@@ -659,19 +674,16 @@ def sweep_segment_batch(
         raise ValueError(f"unknown formulation {opts.formulation}")
     planes = dsi_cfg.planes(device=batch.xy.device)
     z0 = planes[dsi_cfg.num_planes // 2]
-    T_w_ref = SE3(batch.ref_R[:, None], batch.ref_t[:, None])
-    geoms = precompute_batch_geometry(cam, batch.poses_R, batch.poses_t,
-                                      T_w_ref, planes, z0)  # (S, C, ...)
 
     if opts.formulation == "kernel":
-        phi = torch.stack([geoms.phi.alpha, geoms.phi.beta_x, geoms.phi.beta_y],
-                          dim=-1)  # (S, C, Nz, 3)
-        # the kernel counts each valid event as 1: `canonical_inputs`
-        # refuses float weights, which may be fractional, by their dtype
-        # (no host sync)
-        dsi, conf, zf = backproject_vote_frames(
-            batch.xy, batch.valid, geoms.H, phi, cam=cam, dsi_cfg=dsi_cfg,
-            mode=opts.voting, quantized=opts.quantized, frame_valid=batch.frame_valid)
+        # the front end: eager on the CPU, one launch on the card. The kernel
+        # counts each valid event as 1: both refuse float weights, which may
+        # be fractional, by their dtype (no host sync)
+        front = canonical_inputs_eager if batch.xy.device.type == "cpu" else canonical_project
+        xy0, valid, phi = front(cam, batch, planes, z0, quantized=opts.quantized)
+        dsi, conf, zf = backproject_vote_detect(
+            xy0, valid, phi, cx=cam.cx, cy=cam.cy, w=cam.width, h=cam.height,
+            mode=opts.voting, quantized=opts.quantized)
         if opts.quantized:
             dsi = dsi_lib.from_storage(dsi)
         dm = detect_and_filter_from(
@@ -682,6 +694,9 @@ def sweep_segment_batch(
         )
         return dsi, dm
 
+    T_w_ref = SE3(batch.ref_R[:, None], batch.ref_t[:, None])
+    geoms = precompute_batch_geometry(cam, batch.poses_R, batch.poses_t,
+                                      T_w_ref, planes, z0)  # (S, C, ...)
     s = batch.xy.shape[0]
     dsi = torch.zeros((s, *dsi_cfg.shape), dtype=_accum_dtype(opts),
                       device=batch.xy.device)

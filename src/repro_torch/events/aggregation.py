@@ -117,12 +117,19 @@ class StreamingAggregator:
     leave stalled past the current watermark: beyond it the push raises
     `PoseStallError` after buffering the frames, so no event is lost and
     pushing the missing pose chunks recovers.
+
+    `defer_rotations` (the oracle on the CPU only) emits oracle-posed
+    frames with their translations and `poses.R` None; `rotations(t_mid)`
+    gives the rotations later, many frames in one call, bitwise what the
+    frames would have carried. A stream that completes one frame a push
+    pays the rotations' fixed cost once a segment instead of once a frame.
     """
 
     def __init__(self, cam: CameraModel, traj: Trajectory | TrajectoryBuffer,
                  events_per_frame: int = EVENTS_PER_FRAME, *,
                  pose_extrapolation: str = "warn",
-                 max_stalled: int | None = None, device=None):
+                 max_stalled: int | None = None, device=None,
+                 defer_rotations: bool = False):
         if events_per_frame < 1:
             raise ValueError(f"events_per_frame must be >= 1, got {events_per_frame}")
         if pose_extrapolation not in POSE_EXTRAPOLATION_POLICIES:
@@ -156,6 +163,12 @@ class StreamingAggregator:
                 # rotations once, each frame's arithmetic on host arrays
                 # (bitwise pose_at_times on the CPU)
                 self._poser = PoseInterpolator(self.traj)
+        if defer_rotations and self._poser is None:
+            raise ValueError(
+                "defer_rotations needs a Trajectory oracle on the CPU: frames "
+                "posed from a TrajectoryBuffer or on another device carry "
+                "their rotations")
+        self._defer_rotations = defer_rotations
         self.pose_extrapolation = pose_extrapolation
         self.max_stalled = max_stalled
         self.events_per_frame = int(events_per_frame)
@@ -297,7 +310,9 @@ class StreamingAggregator:
                 traj: Trajectory) -> EventFrames:
         """EventFrames on the aggregator's device, posed from `traj`."""
         t_mid_d = torch.from_numpy(t_mid).to(self.device)
-        if traj is self.traj and self._poser is not None:
+        if traj is self.traj and self._defer_rotations:
+            poses = SE3(None, torch.from_numpy(self._poser.translations(t_mid)))
+        elif traj is self.traj and self._poser is not None:
             poses = self._poser(t_mid)
         else:
             poses = pose_at_times(traj, t_mid_d)
@@ -307,6 +322,11 @@ class StreamingAggregator:
             t_mid=t_mid_d,
             poses=poses,
         )
+
+    def rotations(self, t_mid) -> np.ndarray:
+        """The oracle's rotations at frame mid-times (host float32, (n, 3, 3)):
+        what `defer_rotations` left out of the frames."""
+        return self._poser.rotations(t_mid)
 
     def _release(self) -> EventFrames:
         """Pose and emit the oldest stalled frames the watermark covers

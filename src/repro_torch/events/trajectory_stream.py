@@ -149,15 +149,30 @@ class PoseInterpolator:
 
     def __call__(self, t_query) -> SE3:
         """Poses (CPU tensors) at the query times."""
+        return SE3(torch.from_numpy(self.rotations(t_query)),
+                   torch.from_numpy(self.translations(t_query)))
+
+    def _interval(self, t_query) -> tuple[np.ndarray, np.ndarray]:
         tq = to_host(t_query, np.float32)
         n = self._times.shape[0]
         idx = np.clip(np.searchsorted(self._times, tq, side="right") - 1, 0, n - 2)
         t0, t1 = self._times[idx], self._times[idx + 1]
         frac = np.clip((tq - t0) / np.maximum(t1 - t0, _F32(1e-9)),
                        _F32(0.0), _F32(1.0))[..., None]
-        t = self._t[idx] + frac * (self._t[idx + 1] - self._t[idx])
-        R = _matmul3_host(_so3_exp_host(self._w[idx] * frac), self._R[idx])
-        return SE3(torch.from_numpy(R), torch.from_numpy(t))
+        return idx, frac
+
+    def translations(self, t_query) -> np.ndarray:
+        """The poses' translations at the query times, (n, 3): a few numpy
+        operations, for callers that need the rotations only later."""
+        idx, frac = self._interval(t_query)
+        return self._t[idx] + frac * (self._t[idx + 1] - self._t[idx])
+
+    def rotations(self, t_query) -> np.ndarray:
+        """The poses' rotations at the query times, (n, 3, 3). The fixed
+        cost of a call is most of its cost, so many queries are best
+        posed in one call; the bits do not depend on the batch."""
+        idx, frac = self._interval(t_query)
+        return _matmul3_host(_so3_exp_host(self._w[idx] * frac), self._R[idx])
 
 
 class TrajectoryBuffer:

@@ -16,6 +16,10 @@ Kernels:
                      32x8 tile); it replaces no TPU kernel, and its plain
                      version is `core/detection.py`'s eager code, so the
                      package has no `ref.py`.
+  canonical_project — the sweep's front end (frame geometry, Table 1, the
+                     homography), one CTA per (segment, frame); it replaces
+                     no TPU kernel, and its plain version is the eager chain
+                     of `core/pipeline.py`, so the package has no `ref.py`.
   flash_attention  — causal/GQA softmax attention with an online softmax,
                      one CTA per (query tile, batch*head) looping over
                      KV tiles: wgmma on bf16 operands fed by a TMA ring

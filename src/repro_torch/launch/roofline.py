@@ -81,6 +81,14 @@ def sweep_bound(s: int, c: int, e: int, nz: int, w: int, h: int, n_valid: int,
     return bound_ms(sweep_bytes(s, c, e, nz, w, h, quantized), sweep_ops(nz, n_valid))
 
 
+def canonical_project_bytes(s: int, c: int, e: int, nz: int) -> int:
+    """Bytes the front end must move for S segments of C frames of E events
+    onto Nz planes: each event's coordinates (float32 pair) and mask read
+    and written, each frame's pose (12 float32) and mask read and its phi
+    (3 float32 a plane) written, each key frame's pose, the planes and z0."""
+    return 18 * s * c * e + (49 + 12 * nz) * s * c + 48 * s + 4 * (nz + 1)
+
+
 def depth_argmax_bytes(s: int, nz: int, h: int, w: int, itemsize: int = 2) -> int:
     """Bytes B2 must move: the stored DSI read once, conf and zf written."""
     return itemsize * s * nz * h * w + 8 * s * h * w

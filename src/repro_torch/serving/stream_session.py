@@ -68,9 +68,21 @@ class MemoryBudgetError(RuntimeError):
     non-blocking, `flush()` drains fully."""
 
 
+def _host_rotations(frames: EventFrames):
+    """The frames' rotations on the host, or one None a frame where the
+    aggregator left them for the frame store to pose."""
+    if frames.poses.R is None:
+        return [None] * int(frames.xy.shape[0])
+    return to_host(frames.poses.R)
+
+
 def _events(field) -> int:
     """Leading length of a chunk field (numpy array, tensor or sequence)."""
     return int(field.shape[0] if hasattr(field, "shape") else np.asarray(field).shape[0])
+
+
+# bytes of one frame's float32 (3, 3) rotation, counted while it is unposed
+_R_BYTES = 9 * 4
 
 
 class _FrameStore:
@@ -83,9 +95,15 @@ class _FrameStore:
     number a per-session memory cap would enforce against. Frames are
     host numpy (xy float32, valid bool, t_mid float32, R and t float32),
     so the bytes equal the reference store's frame for frame.
+
+    With `rotations` (host mid-times -> (n, 3, 3) float32), a frame may
+    arrive with its rotation None: `window` poses every such frame it
+    covers in one call and keeps the result. Its bytes count the rotation
+    from the start.
     """
 
-    def __init__(self):
+    def __init__(self, rotations=None):
+        self._rotations = rotations
         self.base = 0  # global index of the oldest retained frame
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -103,7 +121,8 @@ class _FrameStore:
     @staticmethod
     def _frame_bytes(xy: np.ndarray, valid: np.ndarray, t_mid: np.ndarray,
                      r: np.ndarray, t: np.ndarray) -> int:
-        return (xy.nbytes + valid.nbytes + t_mid.nbytes + r.nbytes + t.nbytes)
+        return (xy.nbytes + valid.nbytes + t_mid.nbytes
+                + (_R_BYTES if r is None else r.nbytes) + t.nbytes)
 
     def append_frame(self, xy: np.ndarray, valid: np.ndarray,
                      t_mid: np.ndarray, r: np.ndarray,
@@ -120,7 +139,7 @@ class _FrameStore:
         xy = to_host(frames.xy)
         valid = to_host(frames.valid)
         t_mid = to_host(frames.t_mid)
-        r = to_host(frames.poses.R)
+        r = _host_rotations(frames)
         t = to_host(frames.poses.t)
         for k in range(xy.shape[0]):
             self.append_frame(xy[k], valid[k], t_mid[k], r[k], t[k])
@@ -131,6 +150,11 @@ class _FrameStore:
             raise IndexError(
                 f"window [{lo}, {hi}) outside retained [{self.base}, {self.end})")
         sel = range(lo - self.base, hi - self.base)
+        unposed = [k for k in sel if self._R[k] is None]
+        if unposed:
+            posed = self._rotations(np.asarray([self._t_mid[k] for k in unposed], np.float32))
+            for k, r in zip(unposed, posed):
+                self._R[k] = r
         return EventFrames(
             xy=np.stack([self._xy[k] for k in sel]),
             valid=np.stack([self._valid[k] for k in sel]),
@@ -188,16 +212,20 @@ class StreamSession:
                 "Trajectory oracle never stalls frames, so the bound "
                 "would silently do nothing")
         # on the host whatever the dispatcher's device: poses interpolated
-        # by the CPU's sin and cos, as a host-aggregated offline run has them
+        # by the CPU's sin and cos, as a host-aggregated offline run has
+        # them; the oracle's rotations wait for the frame store's windows,
+        # one call a dispatch instead of one a frame
         self.aggregator = StreamingAggregator(
             dispatcher.cam, traj, cfg.events_per_frame,
             pose_extrapolation=cfg.pose_extrapolation,
-            max_stalled=cfg.max_stalled_frames, device="cpu")
+            max_stalled=cfg.max_stalled_frames, device="cpu",
+            defer_rotations=not self.pose_gated)
         mean_depth = 0.5 * (dispatcher.dsi_cfg.z_min + dispatcher.dsi_cfg.z_max)
         # min_frames=2 is plan_segments' parallax filter, applied online.
         self.planner = SegmentPlanner(
             mean_depth * dispatcher.opts.keyframe_dist_frac, min_frames=2)
-        self._store = _FrameStore()
+        self._store = _FrameStore(
+            None if self.pose_gated else self.aggregator.rotations)
         # Ingest hygiene: every event chunk is scrubbed against the
         # stream watermark before it reaches the aggregator (policy per
         # StreamConfig.hygiene; the camera model supplies the sensor
@@ -356,7 +384,7 @@ class StreamSession:
         xy = to_host(frames.xy)
         valid = to_host(frames.valid)
         t_mid = to_host(frames.t_mid)
-        r = to_host(frames.poses.R)
+        r = _host_rotations(frames)
         t = to_host(frames.poses.t)
         for k in range(n):
             self._backlog.append((xy[k], valid[k], t_mid[k], r[k], t[k]))

@@ -10,7 +10,11 @@ Nearest voting is bitwise on dsi, conf and zf; bilinear dsi within
 BILINEAR_ATOL/RTOL (float atomics reorder the sum of fractional weights);
 the depth max/argmax kernel is bitwise on any stored DSI; the detection
 tail kernel is bitwise the CPU path on depth, mask and confidence, at any
-plane size and on a sweep at the offline cell's configuration. Flash attention
+plane size and on a sweep at the offline cell's configuration; the front-end
+kernel (frame geometry, Table 1, the homography) is bitwise the CPU's eager
+front end on xy0, valid and phi, on both sensors, both datapaths and any
+bucket shape, and a whole `run_emvs` with it equals one fed the eager front
+end's outputs, one launch of it a bucket. Flash attention
 is held to its plain version within the reference's own tolerances
 (`tests/test_kernels.py`): 2e-5 in float32, 2e-2 in bfloat16 (the sums
 run in another order, the tensor-core route rounds the probabilities to
@@ -39,8 +43,9 @@ from repro_torch.core import detection
 from repro_torch.core import pipeline as tp
 from repro_torch.core.camera import CAMERAS, CameraModel
 from repro_torch.core.dsi import DSIConfig
-from repro_torch.core.pipeline import EMVSOptions, run_emvs
-from repro_torch.events.aggregation import aggregate
+from repro_torch.core.geometry import so3_exp
+from repro_torch.core.pipeline import EMVSOptions, SegmentBatch, run_emvs
+from repro_torch.events.aggregation import PARKED_COORD, aggregate
 from repro_torch.events.simulator import (
     SceneConfig,
     make_scene,
@@ -55,6 +60,7 @@ from repro_torch.kernels.backproject_vote.kernel import (
     kernel_smem_bytes,
     smem_bytes,
 )
+from repro_torch.kernels.canonical_project.ops import canonical_project
 from repro_torch.kernels.detect_filter.kernel import detect_filter_cuda
 from repro_torch.kernels.flash_attention.kernel import route
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -251,8 +257,9 @@ def test_cuda_run_emvs_kernel_matches_scatter(dev):
         got = run_emvs(cam, cfg, frames, opts, device=dev)
         assert cuda.launch_counts["backproject_vote"] > 0
         assert cuda.launch_counts["depth_argmax"] > 0
-        # one launch of the detection tail a bucket, as B1's
+        # one launch of the front end and of the detection tail a bucket, as B1's
         assert cuda.launch_counts["detect_filter"] == cuda.launch_counts["backproject_vote"]
+        assert cuda.launch_counts["canonical_project"] == cuda.launch_counts["backproject_vote"]
         ref = run_emvs(cam, cfg, frames,
                        EMVSOptions(formulation="scatter", quantized=quantized,
                                    keyframe_dist_frac=0.05), device=dev)
@@ -364,6 +371,119 @@ def test_cuda_detect_filter_refuses(dev):
         detect_filter_cuda(conf, zf, planes.double(), taps, **kw)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         detect_filter_cuda(conf.cpu(), zf.cpu(), planes.cpu(), taps, **kw)
+
+
+def _front_batch(seed: int, s: int, c: int, e: int, cam: CameraModel) -> SegmentBatch:
+    """A bucket on the host: poses near each segment's key frame, events over
+    the sensor and past its edges, some parked far outside and invalid, and
+    every segment but the first padded after a random number of real frames
+    (repeating its last real frame, as `pad_segments` does)."""
+    rng = np.random.default_rng(seed)
+    R = so3_exp(torch.from_numpy(rng.normal(0.0, 0.05, (s, c, 3)).astype(np.float32)))
+    t = torch.from_numpy(rng.normal(0.0, 0.2, (s, c, 3)).astype(np.float32))
+    xy = rng.uniform((-4.0, -4.0), (cam.width + 4.0, cam.height + 4.0),
+                     (s, c, e, 2)).astype(np.float32)
+    valid = rng.random((s, c, e)) > 0.1
+    parked = rng.random((s, c, e)) < 0.05
+    xy[parked] = PARKED_COORD
+    valid[parked] = False
+    n_real = np.array([c] + [int(rng.integers(1, c + 1)) for _ in range(s - 1)])
+    idx = torch.from_numpy(np.minimum(np.arange(c)[None, :], n_real[:, None] - 1))
+    rows = torch.arange(s)[:, None]
+    R, t = R[rows, idx].contiguous(), t[rows, idx].contiguous()
+    return SegmentBatch(
+        xy=torch.from_numpy(xy)[rows, idx].contiguous(),
+        valid=torch.from_numpy(valid)[rows, idx].contiguous(),
+        frame_valid=torch.from_numpy(np.arange(c)[None, :] < n_real[:, None]),
+        poses_R=R, poses_t=t, ref_R=R[:, 0].contiguous(), ref_t=t[:, 0].contiguous())
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.cpu().view(torch.int32) if t.dtype == torch.float32 else t.cpu()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 20, 40, 80])
+@pytest.mark.parametrize("S", [1, 2, 3])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("camera", ["davis240", "davis346"])
+def test_cuda_canonical_project_matches_cpu(dev, camera, quantized, S, C):
+    """The front end, one launch, bitwise the CPU's eager front end
+    (`precompute_batch_geometry`, then `canonical_inputs`) on xy0, valid and
+    phi: both sensors, Table 1 and float32, padded frames, parked events."""
+    cam = CAMERAS[camera]
+    e = 1024 if C > 1 else 37
+    batch = _front_batch(1000 * S + C + (7 if quantized else 0), S, C, e, cam)
+    planes = DSIConfig.for_camera(cam, num_planes=128, z_min=0.6, z_max=4.5).planes(
+        device="cpu")
+    want = tp.canonical_inputs_eager(cam, batch, planes, planes[64], quantized=quantized)
+    planes_d = planes.to(dev)
+    n0 = cuda.launch_counts["canonical_project"]
+    got = canonical_project(cam, SegmentBatch(*(x.to(dev) for x in batch)), planes_d,
+                            planes_d[64], quantized=quantized)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["canonical_project"] == n0 + 1
+    for name, a, b in zip(("xy0", "valid", "phi"), got, want):
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(_bits(a), _bits(b)), name
+    assert bool(want[1].any()) and not bool(want[1].all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("camera", ["davis240", "davis346"])
+def test_cuda_run_emvs_front_end_matches_eager(dev, monkeypatch, camera, quantized):
+    """A whole `run_emvs` on the card with the front-end kernel equals the
+    same run fed the eager front end's outputs (computed on the CPU, moved to
+    the card) bitwise on every DSI, depth map and mask; the kernel launches
+    once a bucket, as B1."""
+    cam = CAMERAS[camera]
+    scene = make_scene(SceneConfig())
+    traj = make_trajectory("simulation_3planes", 96, device="cpu")
+    frames = aggregate(cam, simulate_events(cam, scene, traj, device="cpu"), traj,
+                       events_per_frame=1024, pose_extrapolation="clamp", device="cpu")
+    cfg = DSIConfig.for_camera(cam, num_planes=64, z_min=0.6, z_max=4.5)
+    opts = EMVSOptions(formulation="kernel", quantized=quantized, keyframe_dist_frac=0.05)
+    cuda.launch_counts.clear()
+    got = run_emvs(cam, cfg, frames, opts, device=dev)
+    torch.cuda.synchronize()
+    n = _buckets(frames, cfg, opts)
+    assert n >= 2
+    assert cuda.launch_counts["canonical_project"] == cuda.launch_counts["backproject_vote"] == n
+
+    def eager(cam_, batch, planes, z0, *, quantized):
+        cpu = SegmentBatch(*(x.cpu() for x in batch))
+        out = tp.canonical_inputs_eager(cam_, cpu, planes.cpu(), z0.cpu(), quantized=quantized)
+        return tuple(x.to(dev) for x in out)
+
+    monkeypatch.setattr(tp, "canonical_project", eager)
+    cuda.launch_counts.clear()
+    want = run_emvs(cam, cfg, frames, opts, device=dev)
+    assert cuda.launch_counts["canonical_project"] == 0
+    assert len(got.segments) == len(want.segments) >= 2
+    for a, b in zip(got.segments, want.segments):
+        assert a.frame_range == b.frame_range
+        assert torch.equal(a.dsi, b.dsi)
+        assert torch.equal(_bits(a.depth_map.depth), _bits(b.depth_map.depth))
+        assert torch.equal(a.depth_map.mask, b.depth_map.mask)
+
+
+@pytest.mark.gpu
+def test_cuda_canonical_project_refuses(dev):
+    cam = CameraModel()
+    batch = SegmentBatch(*(x.to(dev) for x in _front_batch(3, 2, 4, 32, cam)))
+    planes = torch.linspace(0.6, 4.5, 16, device=dev)
+    n0 = cuda.launch_counts["canonical_project"]
+    with pytest.raises(ValueError, match="bool mask"):
+        canonical_project(cam, batch._replace(valid=batch.valid.float()), planes, planes[8],
+                          quantized=True)
+    with pytest.raises(TypeError, match="float32"):
+        canonical_project(cam, batch._replace(xy=batch.xy.double()), planes, planes[8],
+                          quantized=True)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        canonical_project(cam, batch._replace(ref_t=batch.ref_t.cpu()), planes, planes[8],
+                          quantized=True)
+    assert cuda.launch_counts["canonical_project"] == n0
 
 
 @pytest.mark.gpu
@@ -527,6 +647,7 @@ def test_cuda_stream_engine_matches_run_emvs(dev, policy):
         n = engine.stats["dispatches"]
         assert n >= 1 and cuda.launch_counts["backproject_vote"] == n
         assert cuda.launch_counts["depth_argmax"] == cuda.launch_counts["detect_filter"] == n
+        assert cuda.launch_counts["canonical_project"] == n
         assert [s.frame_range for s in got.segments] == [s.frame_range for s in ref.segments]
         for a, b in zip(got.segments, ref.segments):
             assert a.dsi.is_cuda
@@ -668,6 +789,7 @@ def test_cuda_sharded_launches_b1_b2_once_per_bucket(dev):
     n = _buckets(frames, cfg, opts)
     assert len(tp.plan_segments(frames, cfg, opts)) > n >= 1
     assert cuda.launch_counts["backproject_vote"] == cuda.launch_counts["depth_argmax"] == n
+    assert cuda.launch_counts["canonical_project"] == n
 
 
 @pytest.mark.gpu

@@ -52,8 +52,8 @@ def test_run_cell_allocates_nothing(arch, cell, device):
     assert roof["dominant"] in ("compute", "memory")
     kernels = {k["op"] for k in rec["kernels"]}
     if device == "meta":  # the card's program: its kernels as single operations
-        want = ({"repro_torch.backproject_vote.default", "repro_torch.depth_argmax.default",
-                 "repro_torch.detect_filter.default"}
+        want = ({"repro_torch.canonical_project.default", "repro_torch.backproject_vote.default",
+                 "repro_torch.depth_argmax.default", "repro_torch.detect_filter.default"}
                 if arch == "eventor-davis240" else
                 ({"repro_torch.flash_attention.default"} if cell == "prefill_32k" else set()))
         assert kernels == want

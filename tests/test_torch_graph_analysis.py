@@ -126,13 +126,15 @@ def _sweep_stats(formulation: str, device: str, quantized: bool = True):
 
 def test_kernel_sweep_materializes_no_float32_volume_matmul_does():
     vol, st_k, mode_k = _sweep_stats("kernel", "meta")
-    # the card's program: B1 writes the int16 store, B2 reads it; no
-    # operation writes a float32 (S, Nz, h, w) volume
+    # the card's program: the front end hands B1 its inputs, B1 writes the
+    # int16 store, B2 reads it; no operation writes a float32 (S, Nz, h, w)
+    # volume
     f32_vols = [o for o in mode_k.ops if o.materializes and
                 ("float32", vol) in o.outputs]
     assert f32_vols == []
     names = [o.name for o in mode_k.ops if o.name.startswith("repro_torch.")]
-    assert names == ["repro_torch.backproject_vote.default", "repro_torch.depth_argmax.default",
+    assert names == ["repro_torch.canonical_project.default",
+                     "repro_torch.backproject_vote.default", "repro_torch.depth_argmax.default",
                      "repro_torch.detect_filter.default"]
     _, _, mode_m = _sweep_stats("matmul", "meta")
     f32_m = [o for o in mode_m.ops if o.materializes and

@@ -449,9 +449,10 @@ class _OpCount(torch.utils._python_dispatch.TorchDispatchMode):
 
 
 # aten operations one StreamSession.push of one 1024-event frame may
-# dispatch (sweeps excluded): 50 with the oracle's host interpolator; the
-# per-frame pose_at_times it replaced dispatched 158
-INGEST_OPS_PER_PUSH = 50
+# dispatch (sweeps excluded): 22 with the oracle's rotations left to the
+# frame store's windows; 50 when the host interpolator posed every frame's
+# rotation at its push; the per-frame pose_at_times before it dispatched 158
+INGEST_OPS_PER_PUSH = 22
 
 
 def test_ingest_per_push_is_pinned():
@@ -485,3 +486,56 @@ def test_ingest_per_push_is_pinned():
     assert len(counts) >= 20 and dispatched  # segments closed along the way
     assert max(ops for ops, _ in counts) <= INGEST_OPS_PER_PUSH
     assert all(copies == 0 for _, copies in counts)
+
+
+@pytest.mark.parametrize("name,steps", [("simulation_3planes", 24), ("slider_far", 96)])
+def test_deferred_rotations_are_the_eager_poses(name, steps):
+    """An oracle aggregator with `defer_rotations` emits the eager frames
+    with their translations and no rotations; a frame store fed those
+    frames poses each window's rotations in one call, bitwise the eager
+    frames' rotations, and counts the same bytes all along."""
+    from repro_torch.core.camera import CameraModel
+    from repro_torch.serving.stream_session import _FrameStore
+
+    cam = CameraModel()
+    traj = t_sim.make_trajectory(name, steps, device="cpu")
+    rng = np.random.default_rng(steps)
+    n = 23 * 64 + 17
+    ev = t_sim.EventStream(
+        torch.from_numpy(rng.uniform(0, [cam.width, cam.height], (n, 2)).astype(np.float32)),
+        torch.from_numpy(np.sort(rng.uniform(0.0, 1.0, n)).astype(np.float32)),
+        torch.ones(n, dtype=torch.int8), torch.from_numpy(rng.random(n) < 0.9))
+    eager = t_agg.StreamingAggregator(cam, traj, 64, device="cpu")
+    lazy = t_agg.StreamingAggregator(cam, traj, 64, device="cpu", defer_rotations=True)
+    store_e, store_l = _FrameStore(), _FrameStore(lazy.rotations)
+    cuts = np.sort(rng.choice(np.arange(1, n), 30, replace=False))
+    for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, n]):
+        chunk = t_sim.EventStream(*(f[lo:hi] for f in ev))
+        fe, fl = eager.push(chunk), lazy.push(chunk)
+        assert fl.poses.R is None or fl.xy.shape[0] == 0
+        for a, b in ((fe.xy, fl.xy), (fe.valid, fl.valid), (fe.t_mid, fl.t_mid),
+                     (fe.poses.t, fl.poses.t)):
+            assert torch.equal(a, b)
+        store_e.extend(fe)
+        store_l.extend(fl)
+        assert (store_e.live_bytes, store_e.peak_bytes) == (store_l.live_bytes,
+                                                            store_l.peak_bytes)
+    store_e.extend(eager.flush())
+    store_l.extend(lazy.flush())
+    assert store_l.end == store_e.end == 24
+    for lo, hi in ((0, 5), (3, 11), (3, 11), (10, 24)):
+        we, wl = store_e.window(lo, hi), store_l.window(lo, hi)
+        np.testing.assert_array_equal(we.poses.R, wl.poses.R)
+        np.testing.assert_array_equal(we.poses.t, wl.poses.t)
+        np.testing.assert_array_equal(we.t_mid, wl.t_mid)
+    store_e.evict_before(7)
+    store_l.evict_before(7)
+    assert (store_e.live_bytes, store_e.base) == (store_l.live_bytes, store_l.base)
+
+
+def test_defer_rotations_needs_the_host_oracle(cams):
+    """Only the oracle on the CPU may leave rotations out of its frames:
+    a pose-gated aggregator refuses, as it poses from a trajectory slice."""
+    with pytest.raises(ValueError, match="defer_rotations"):
+        t_agg.StreamingAggregator(cams[1], t_ts.TrajectoryBuffer(), 64, device="cpu",
+                                  defer_rotations=True)
