@@ -112,9 +112,14 @@ def time_tail(conf, zf, planes) -> dict:
     except ImportError:
         return out
 
+    taps = getattr(detection, "_gaussian_taps", None)  # older trees' wrapper takes the taps
+
     def kernel():
-        return detect_filter(conf, zf, planes, detection._gaussian_taps(2.5, 5),
-                             threshold_c=6.0, min_votes=3.0, median_filter=True)
+        if taps is not None:
+            return detect_filter(conf, zf, planes, taps(2.5, 5), threshold_c=6.0,
+                                 min_votes=3.0, median_filter=True)
+        return detect_filter(conf, zf, planes, threshold_c=6.0, min_votes=3.0,
+                             median_filter=True)[:2]
 
     depth, mask = kernel()
     want = detection.detect_and_filter_from(conf.cpu(), zf.cpu(), planes.cpu())

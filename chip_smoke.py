@@ -612,6 +612,7 @@ def compare_b1_b2(xy0, valid, phi, *, cam, mode: str, quantized: bool, what: str
     from repro_torch.kernels import cuda
     from repro_torch.kernels.backproject_vote.kernel import backproject_vote_cuda
     from repro_torch.kernels.backproject_vote.ref import backproject_vote_detect_ref
+    from repro_torch.kernels.detect_filter.ops import detect_filter
     from repro_torch.kernels.local_max.kernel import depth_argmax_cuda
     from repro_torch.kernels.local_max.ref import depth_argmax_ref
 
@@ -642,7 +643,7 @@ def compare_b1_b2(xy0, valid, phi, *, cam, mode: str, quantized: bool, what: str
     assert_equal(zf, zf_p, f"{what}: depth_argmax zf")
     planes = torch.linspace(0.6, 4.5, dsi.shape[-3])
     n_tail = cuda.launch_counts["detect_filter"]
-    dm = detect_and_filter_from(conf, zf, planes.to(conf.device))
+    dm = detect_filter(conf, zf, planes.to(conf.device))
     assert cuda.launch_counts["detect_filter"] == n_tail + 1, what
     dm_p = detect_and_filter_from(conf.cpu(), zf.cpu(), planes)
     assert_equal(dm.depth.cpu(), dm_p.depth, f"{what}: detection tail depth")
@@ -2249,12 +2250,12 @@ def main_batch(cam, dsi_cfg, frames, opts):
 def main_bucket(cam, dsi_cfg, frames, opts):
     """The sweep kernel's inputs `(xy0, valid, phi)` for the capacity bucket
     with most segments, as the eager front end builds them."""
-    from repro_torch.core.pipeline import canonical_inputs_eager
+    from repro_torch.kernels.canonical_project.ref import canonical_project_ref
 
     batch = main_batch(cam, dsi_cfg, frames, opts)
     planes = dsi_cfg.planes(device=frames.xy.device)
-    return canonical_inputs_eager(cam, batch, planes, planes[dsi_cfg.num_planes // 2],
-                                  quantized=opts.quantized)
+    return canonical_project_ref(cam, batch, planes, planes[dsi_cfg.num_planes // 2],
+                                 quantized=opts.quantized)
 
 
 def front_end_timings(card: str, cam, dsi_cfg, frames, opts) -> dict:
@@ -2266,9 +2267,10 @@ def front_end_timings(card: str, cam, dsi_cfg, frames, opts) -> dict:
     CPU's)."""
     import torch
 
-    from repro_torch.core.pipeline import SegmentBatch, canonical_inputs_eager
+    from repro_torch.core.pipeline import SegmentBatch
     from repro_torch.kernels import cuda
     from repro_torch.kernels.canonical_project.ops import canonical_project
+    from repro_torch.kernels.canonical_project.ref import canonical_project_ref
     from repro_torch.launch.roofline import bound_ms, canonical_project_bytes
 
     batch = main_batch(cam, dsi_cfg, frames, opts)
@@ -2283,7 +2285,7 @@ def front_end_timings(card: str, cam, dsi_cfg, frames, opts) -> dict:
         return canonical_project(cam, batch, planes, z0, quantized=opts.quantized)
 
     def eager():
-        return canonical_inputs_eager(cam, batch, planes, z0, quantized=opts.quantized)
+        return canonical_project_ref(cam, batch, planes, z0, quantized=opts.quantized)
 
     def bits(t):
         t = t.cpu()
@@ -2293,8 +2295,8 @@ def front_end_timings(card: str, cam, dsi_cfg, frames, opts) -> dict:
     got = kernel()
     torch.cuda.synchronize()
     assert cuda.launch_counts["canonical_project"] == n0 + 1, shape_note
-    want = canonical_inputs_eager(cam, SegmentBatch(*(t.cpu() for t in batch)),
-                                  planes.cpu(), z0.cpu(), quantized=opts.quantized)
+    want = canonical_project_ref(cam, SegmentBatch(*(t.cpu() for t in batch)),
+                                 planes.cpu(), z0.cpu(), quantized=opts.quantized)
     eager_off = {}
     for name, a, b, d in zip(("xy0", "valid", "phi"), got, want, eager()):
         assert_equal(bits(a), bits(b), f"canonical_project {name} at {shape_note} vs the "

@@ -10,18 +10,16 @@ The Gaussian blur is a sum of shifted slices, not a convolution: cuDNN
 would run a float32 convolution in TF32 on the card. Every function takes
 an optional leading batch of segments.
 
-On the CPU the tail (steps 2 to 4) runs as the eager code below. Any other
-device takes the detection-tail kernel (`kernels/detect_filter`), one
-launch a call, which equals this code bit for bit.
+This is the tail's plain version (steps 2 to 4): the detection-tail kernel
+(`kernels/detect_filter`) equals it bit for bit, and its wrapper picks
+between the two by the tensor's device.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.detect_filter.ops import detect_filter
 from repro_torch.kernels.local_max.ref import depth_argmax_ref
 
 Tensor = torch.Tensor
@@ -58,29 +56,6 @@ def _blur_axis(img: Tensor, k: Tensor, radius: int, dim: int) -> Tensor:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _gaussian_taps(sigma: float, radius: int) -> tuple[float, ...]:
-    """The CPU path's kernel weights as host floats: the card's kernel takes
-    them by value, so a call makes no device tensor and no copy."""
-    return tuple(gaussian_kernel1d(sigma, radius, device="cpu").tolist())
-
-
-# at import, so that a traced call (fake tensors, a dispatch mode) finds the
-# default weights made and records no operation of theirs
-_gaussian_taps(ADAPTIVE_SIGMA, ADAPTIVE_RADIUS)
-
-
-def _detect_on_device(conf: Tensor, zf: Tensor, planes: Tensor, *, threshold_c: float,
-                      adaptive_sigma: float, adaptive_radius: int, min_votes: float,
-                      median_filter: bool) -> DepthMap:
-    conf = conf.to(torch.float32)
-    depth, mask = detect_filter(conf, zf.to(torch.float32), planes,
-                                _gaussian_taps(adaptive_sigma, adaptive_radius),
-                                threshold_c=threshold_c, min_votes=min_votes,
-                                median_filter=median_filter)
-    return DepthMap(depth=depth, mask=mask, confidence=conf)
-
-
 def gaussian_blur(img: Tensor, sigma: float = 2.0, radius: int = 5) -> Tensor:
     """Separable Gaussian blur with edge padding, (..., h, w) -> (..., h, w)."""
     k = gaussian_kernel1d(sigma, radius, device=img.device)
@@ -100,11 +75,6 @@ def detect_structure_from(
     """Detection tail from a depth reduction (`conf` max, `zf` refined
     argmax): adaptive Gaussian threshold mask + piecewise-linear depth
     interpolation between plane centres."""
-    if conf.device.type != "cpu":
-        return _detect_on_device(conf, zf, planes, threshold_c=threshold_c,
-                                 adaptive_sigma=adaptive_sigma,
-                                 adaptive_radius=adaptive_radius, min_votes=min_votes,
-                                 median_filter=False)
     conf = conf.to(torch.float32)
     zf = zf.to(torch.float32)
     local_mean = gaussian_blur(conf, adaptive_sigma, adaptive_radius)
@@ -194,11 +164,6 @@ def detect_and_filter_from(
 ) -> DepthMap:
     """`detect_and_filter` for callers that already hold (conf, zf), such as
     the fused sweep kernel's output."""
-    if conf.device.type != "cpu":
-        return _detect_on_device(conf, zf, planes, threshold_c=threshold_c,
-                                 adaptive_sigma=ADAPTIVE_SIGMA,
-                                 adaptive_radius=ADAPTIVE_RADIUS, min_votes=min_votes,
-                                 median_filter=median_filter)
     dm = detect_structure_from(conf, zf, planes,
                                threshold_c=threshold_c, min_votes=min_votes)
     return _median_tail(dm, median_filter)

@@ -8,14 +8,16 @@ capacities (`pad_segments`); each capacity bucket is swept in one call of
 Padded frames repeat a real frame and vote with weight 0.
 
 Three interchangeable voting formulations:
-  * "kernel"  — the CUDA front-end kernel (frame geometry, Table 1, the
-    homography), the sweep kernel (vote + int16 store) and the depth
-    max/argmax kernel, one launch each per bucket; on the CPU, the eager
-    front end and the kernels' plain versions;
+  * "kernel"  — the front end (frame geometry, Table 1, the homography),
+    the sweep (vote + int16 store) and the depth max/argmax, each through
+    its kernel wrapper: one launch each per bucket on the card, the plain
+    versions on the CPU;
   * "scatter" — plain PyTorch scatter-add, frame by frame;
   * "matmul"  — plain PyTorch one-hot products, frame by frame.
 All three agree bitwise on the nearest-voting datapaths (float and
-quantized) and to float tolerance on bilinear.
+quantized) and to float tolerance on bilinear, and end in the same
+detection tail (`kernels/detect_filter`). This module tests no device:
+each kernel wrapper picks its own path from the tensor's device.
 
 The streaming engine (`repro_torch.serving.emvs_stream`) drives this
 module online: `SegmentPlanner` applies the K criterion frame by frame,
@@ -40,15 +42,17 @@ import torch
 from repro_torch.core import dsi as dsi_lib
 from repro_torch.core.backproject import FrameGeometry, frame_geometry
 from repro_torch.core.camera import CameraModel
-from repro_torch.core.detection import DepthMap, detect_and_filter, detect_and_filter_from
+from repro_torch.core.detection import DepthMap
 from repro_torch.core.dsi import DSIConfig
 from repro_torch.core.geometry import SE3, PlaneSweepCoeffs, apply_homography, propagate_to_planes
 from repro_torch.core.pointcloud import PointCloud, depth_map_to_points, depth_maps_to_points
 from repro_torch.core.voting import vote_onehot_matmul, vote_scatter
 from repro_torch.device import resolve_device, to_host
 from repro_torch.events.aggregation import EventFrames
-from repro_torch.kernels.backproject_vote.ops import backproject_vote_detect, canonical_inputs
+from repro_torch.kernels.backproject_vote.ops import backproject_vote_detect
 from repro_torch.kernels.canonical_project.ops import canonical_project
+from repro_torch.kernels.detect_filter.ops import detect_filter
+from repro_torch.kernels.local_max.ref import depth_argmax_ref
 from repro_torch.quant.policies import TABLE1, EMVSQuantPolicy
 
 Tensor = torch.Tensor
@@ -644,19 +648,6 @@ def precompute_segment_geometry(
                                      T_w_ref, planes, z0)
 
 
-def canonical_inputs_eager(cam: CameraModel, batch: SegmentBatch, planes: Tensor,
-                           z0: Tensor, *, quantized: bool) -> tuple[Tensor, Tensor, Tensor]:
-    """The kernel formulation's front end as eager operations (the CPU
-    path, which `canonical_project`'s kernel equals bit for bit)."""
-    T_w_ref = SE3(batch.ref_R[:, None], batch.ref_t[:, None])
-    geoms = precompute_batch_geometry(cam, batch.poses_R, batch.poses_t,
-                                      T_w_ref, planes, z0)  # (S, C, ...)
-    phi = torch.stack([geoms.phi.alpha, geoms.phi.beta_x, geoms.phi.beta_y],
-                      dim=-1)  # (S, C, Nz, 3)
-    return canonical_inputs(batch.xy, batch.valid, geoms.H, phi, quantized=quantized,
-                            frame_valid=batch.frame_valid)
-
-
 def sweep_segment_batch(
     cam: CameraModel,
     dsi_cfg: DSIConfig,
@@ -676,44 +667,32 @@ def sweep_segment_batch(
     z0 = planes[dsi_cfg.num_planes // 2]
 
     if opts.formulation == "kernel":
-        # the front end: eager on the CPU, one launch on the card. The kernel
-        # counts each valid event as 1: both refuse float weights, which may
-        # be fractional, by their dtype (no host sync)
-        front = canonical_inputs_eager if batch.xy.device.type == "cpu" else canonical_project
-        xy0, valid, phi = front(cam, batch, planes, z0, quantized=opts.quantized)
+        # the kernel counts each valid event as 1: the front end refuses
+        # float weights, which may be fractional, by their dtype (no host sync)
+        xy0, valid, phi = canonical_project(cam, batch, planes, z0, quantized=opts.quantized)
         dsi, conf, zf = backproject_vote_detect(
             xy0, valid, phi, cx=cam.cx, cy=cam.cy, w=cam.width, h=cam.height,
             mode=opts.voting, quantized=opts.quantized)
         if opts.quantized:
             dsi = dsi_lib.from_storage(dsi)
-        dm = detect_and_filter_from(
-            conf, zf, planes,
-            threshold_c=opts.detection_threshold_c,
-            min_votes=opts.detection_min_votes,
-            median_filter=opts.median_filter,
-        )
-        return dsi, dm
-
-    T_w_ref = SE3(batch.ref_R[:, None], batch.ref_t[:, None])
-    geoms = precompute_batch_geometry(cam, batch.poses_R, batch.poses_t,
-                                      T_w_ref, planes, z0)  # (S, C, ...)
-    s = batch.xy.shape[0]
-    dsi = torch.zeros((s, *dsi_cfg.shape), dtype=_accum_dtype(opts),
-                      device=batch.xy.device)
-    for c in range(batch.xy.shape[1]):
-        geom = FrameGeometry(geoms.H[:, c], PlaneSweepCoeffs(
-            geoms.phi.alpha[:, c], geoms.phi.beta_x[:, c], geoms.phi.beta_y[:, c]))
-        x_i, y_i = project_frame(cam, batch.xy[:, c], geom, opts)
-        dsi = vote_frame(dsi, x_i, y_i,
-                         batch.valid[:, c] * batch.frame_valid[:, c, None], cam, opts)
-    if opts.quantized:
-        dsi = dsi_lib.storage_roundtrip(dsi)  # int16 store semantics
-    dm = detect_and_filter(
-        dsi, planes,
-        threshold_c=opts.detection_threshold_c,
-        min_votes=opts.detection_min_votes,
-        median_filter=opts.median_filter,
-    )
+    else:
+        T_w_ref = SE3(batch.ref_R[:, None], batch.ref_t[:, None])
+        geoms = precompute_batch_geometry(cam, batch.poses_R, batch.poses_t,
+                                          T_w_ref, planes, z0)  # (S, C, ...)
+        s = batch.xy.shape[0]
+        dsi = torch.zeros((s, *dsi_cfg.shape), dtype=_accum_dtype(opts),
+                          device=batch.xy.device)
+        for c in range(batch.xy.shape[1]):
+            geom = FrameGeometry(geoms.H[:, c], PlaneSweepCoeffs(
+                geoms.phi.alpha[:, c], geoms.phi.beta_x[:, c], geoms.phi.beta_y[:, c]))
+            x_i, y_i = project_frame(cam, batch.xy[:, c], geom, opts)
+            dsi = vote_frame(dsi, x_i, y_i,
+                             batch.valid[:, c] * batch.frame_valid[:, c, None], cam, opts)
+        if opts.quantized:
+            dsi = dsi_lib.storage_roundtrip(dsi)  # int16 store semantics
+        conf, zf = depth_argmax_ref(dsi)
+    dm = detect_filter(conf, zf, planes, threshold_c=opts.detection_threshold_c,
+                       min_votes=opts.detection_min_votes, median_filter=opts.median_filter)
     return dsi, dm
 
 

@@ -8,7 +8,7 @@
 // Replaces no TPU kernel: the reference computes this as plain JAX
 // (`repro/core/backproject.py::frame_geometry`, the Table-1 steps of
 // `repro/kernels/backproject_vote/ops.py`), which XLA fuses. The port's eager
-// PyTorch chain (`core/pipeline.py::precompute_batch_geometry`, then
+// PyTorch chain (`kernels/canonical_project/ref.py`: `frame_geometry`, then
 // `kernels/backproject_vote/ops.py::canonical_inputs`), about a hundred
 // launches a bucket on the card, is the CPU path and the semantics this
 // kernel is held to bit for bit. Its outputs are what the sweep kernel B1

@@ -50,11 +50,13 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.core import dsi as dsi_lib
 from repro_torch.core.camera import CameraModel
-from repro_torch.core.detection import DepthMap, detect_structure
+from repro_torch.core.detection import DepthMap
 from repro_torch.core.dsi import DSIConfig
 from repro_torch.core.geometry import PlaneSweepCoeffs, apply_homography, propagate_to_planes
 from repro_torch.core.pipeline import EMVSOptions, SegmentBatch, sweep_segment_batch
 from repro_torch.core.voting import vote_onehot_matmul
+from repro_torch.kernels.detect_filter.ops import detect_filter
+from repro_torch.kernels.local_max.ref import depth_argmax_ref
 
 Tensor = torch.Tensor
 
@@ -151,7 +153,8 @@ def make_emvs_step(cam: CameraModel, dsi_cfg: DSIConfig, mesh: DeviceMesh, *,
             dsi = dsi.to(vote_dtype).to(torch.int32)
         dist.all_reduce(dsi, op=dist.ReduceOp.SUM, group=data_group)
         dsi_full = all_gather_rows(dsi, model_group)
-        dm = detect_structure(dsi_full.to(torch.float32), dsi_cfg.planes(device=xy.device))
+        conf, zf = depth_argmax_ref(dsi_full.to(torch.float32))
+        dm = detect_filter(conf, zf, dsi_cfg.planes(device=xy.device), median_filter=False)
         return dsi_full, dm.depth, dm.mask, dm.confidence
 
     if pod_axis is None:

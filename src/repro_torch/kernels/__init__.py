@@ -2,7 +2,9 @@
 
 Each kernel package ships three files, as the reference's do:
   kernel.py — the ctypes launcher of the CUDA source in `csrc/`
-  ops.py    — the public wrapper; the tensor's device picks the path
+  ops.py    — the public wrapper, the one place a stage's path is picked:
+              a CPU tensor takes the plain version, a CUDA tensor the
+              kernel, a meta tensor traces the kernel; any other raises
   ref.py    — the plain PyTorch version (the CPU path, and the yardstick
               the kernel is held to on the card)
 
@@ -18,8 +20,7 @@ Kernels:
                      package has no `ref.py`.
   canonical_project — the sweep's front end (frame geometry, Table 1, the
                      homography), one CTA per (segment, frame); it replaces
-                     no TPU kernel, and its plain version is the eager chain
-                     of `core/pipeline.py`, so the package has no `ref.py`.
+                     no TPU kernel.
   flash_attention  — causal/GQA softmax attention with an online softmax,
                      one CTA per (query tile, batch*head) looping over
                      KV tiles: wgmma on bf16 operands fed by a TMA ring

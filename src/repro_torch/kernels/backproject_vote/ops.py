@@ -26,17 +26,6 @@ from repro_torch.quant.policies import TABLE1
 Tensor = torch.Tensor
 
 
-def backproject_vote(
-    xy0: Tensor, valid: Tensor, phi: Tensor, *, cx: float, cy: float, w: int,
-    h: int, mode: str = "nearest", quantized: bool = False,
-) -> Tensor:
-    """DSI (..., Nz, h, w) from canonical coords: int16 when `quantized`,
-    float32 otherwise. Use `backproject_vote_detect` to keep conf/zf."""
-    dsi, _, _ = backproject_vote_detect(xy0, valid, phi, cx=cx, cy=cy, w=w, h=h,
-                                        mode=mode, quantized=quantized)
-    return dsi
-
-
 def backproject_vote_detect(
     xy0: Tensor,  # (..., F, E, 2) canonical coords
     valid: Tensor,  # (..., F, E) bool

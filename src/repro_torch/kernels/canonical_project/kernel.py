@@ -1,9 +1,9 @@
 """Launcher for the CUDA front-end kernel (`csrc/canonical_project.cu`).
 
 Replaces no TPU kernel: the reference's frame geometry and Table-1 steps
-are plain JAX. Takes CUDA tensors only (a meta tensor traces it); the CPU
-path is `core/pipeline.py::canonical_inputs_eager`, which the kernel equals
-bit for bit.
+are plain JAX. Takes CUDA tensors only (a meta tensor traces it); the
+wrapper (`ops.py`) sends CPU tensors to the plain version (`ref.py`), which
+the kernel equals bit for bit.
 """
 from __future__ import annotations
 

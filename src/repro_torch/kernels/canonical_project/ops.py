@@ -1,9 +1,8 @@
-"""Public wrapper for the sweep's front end on the card: the device picks the path.
+"""Public wrapper for the sweep's front end: the device picks the path.
 
-A CUDA tensor launches the kernel (one launch a bucket), a meta tensor
-traces it; the CPU's path is `core/pipeline.py::canonical_inputs_eager`
-(`precompute_batch_geometry`, then `canonical_inputs`), and the pipeline
-routes every other device here. Any other device raises.
+A CPU tensor takes the plain version (`ref.py`), a CUDA tensor launches
+the kernel (one launch a bucket), a meta tensor traces it; any other
+device raises.
 """
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ import torch
 
 from repro_torch.core.camera import CameraModel
 from repro_torch.kernels.canonical_project.kernel import canonical_project_cuda
+from repro_torch.kernels.canonical_project.ref import canonical_project_ref
 
 Tensor = torch.Tensor
 
@@ -32,8 +32,10 @@ def canonical_project(cam: CameraModel, batch: Any, planes: Tensor, z0: Tensor, 
     under `quantized` Table 1 (Q9.7 events and canonical coordinates, Q11.21
     H and phi), the homography on every event and the frame mask on its
     validity. The batch's masks must be bool (votes weigh 1 or 0)."""
+    if batch.xy.device.type == "cpu":
+        return canonical_project_ref(cam, batch, planes, z0, quantized=quantized)
     if batch.xy.device.type not in ("cuda", "meta"):
-        raise ValueError(f"canonical_project: no kernel path for device {batch.xy.device}")
+        raise ValueError(f"canonical_project: no path for device {batch.xy.device}")
     k, k_inv = _intrinsics(cam)
     return canonical_project_cuda(
         *(t.contiguous() for t in (batch.xy, batch.valid, batch.frame_valid, batch.poses_R,

@@ -1,8 +1,9 @@
 """Launcher for the CUDA detection-tail kernel (`csrc/detect_filter.cu`).
 
 Replaces no TPU kernel: the reference's tail is plain JAX. Takes CUDA
-tensors only (a meta tensor traces it); the CPU path is
-`core.detection`'s eager code, which the kernel equals bit for bit.
+tensors only (a meta tensor traces it); the wrapper (`ops.py`) sends CPU
+tensors to `core.detection`'s eager code, which the kernel equals bit for
+bit.
 """
 from __future__ import annotations
 

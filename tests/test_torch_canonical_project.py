@@ -2,11 +2,12 @@
 
 The kernel itself runs only on the card (`tests/test_torch_cuda.py` holds it
 bitwise to the CPU path there). Here: the launcher's refusals, which raise
-rather than fall back to the eager chain; the meta path's output shapes and
-dtypes, one traced operation a bucket and no launch counted; and
-`sweep_segment_batch` on the CPU, which keeps the eager front end, bitwise
-the chain it ran before the kernel existed (`precompute_batch_geometry`,
-then `backproject_vote_frames`), with padded frames and parked events.
+rather than fall back to the plain version; the wrapper's CPU path, bitwise
+the eager chain (`precompute_batch_geometry`, then `canonical_inputs`); the
+meta path's output shapes and dtypes, one traced operation a bucket and no
+launch counted; and `sweep_segment_batch` on the CPU, bitwise the chain it
+ran before the kernel existed (`precompute_batch_geometry`, then
+`backproject_vote_frames`), with padded frames and parked events.
 """
 from __future__ import annotations
 
@@ -14,13 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import detection
 from repro_torch.core import pipeline as tp
 from repro_torch.core.camera import CAMERAS, CameraModel
 from repro_torch.core.dsi import DSIConfig
 from repro_torch.core.geometry import SE3, so3_exp
 from repro_torch.events.aggregation import PARKED_COORD
 from repro_torch.kernels import cuda
-from repro_torch.kernels.backproject_vote.ops import backproject_vote_frames
+from repro_torch.kernels.backproject_vote.ops import backproject_vote_frames, canonical_inputs
 from repro_torch.kernels.canonical_project.kernel import canonical_project_cuda
 from repro_torch.kernels.canonical_project.ops import canonical_project
 from repro_torch.launch import graph_analysis as ga
@@ -81,8 +83,8 @@ NAMES = ("xy", "valid", "frame_valid", "poses_R", "poses_t", "ref_R", "ref_t", "
 
 @pytest.mark.parametrize("which", range(9))
 def test_refuses_cpu_tensors(which):
-    """A CPU tensor anywhere is refused: the CPU's front end is the eager
-    chain in `core/pipeline.py`, never a silent fallback here."""
+    """A CPU tensor anywhere is refused: the wrapper sends CPU buckets to the
+    plain version, never a silent fallback here."""
     args = _inputs("meta")
     args[which] = _inputs("cpu")[which]
     with pytest.raises(ValueError, match=f"needs CUDA tensors, got {NAMES[which]} on cpu"):
@@ -136,12 +138,39 @@ def test_refuses_intrinsics_of_the_wrong_length():
                                quantized=False)
 
 
-def test_the_wrapper_has_no_cpu_path():
-    cam = CameraModel()
-    batch = _batch(0, 1, 2, 4, cam)
-    planes = torch.linspace(1.0, 2.0, 4)
-    with pytest.raises(ValueError, match="no kernel path for device cpu"):
-        canonical_project(cam, batch, planes, planes[2], quantized=True)
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _eager_chain(cam, batch, planes, z0, quantized):
+    """The front end as the pipeline composed it before the kernel."""
+    geoms = tp.precompute_batch_geometry(cam, batch.poses_R, batch.poses_t,
+                                         SE3(batch.ref_R[:, None], batch.ref_t[:, None]),
+                                         planes, z0)
+    phi = torch.stack([geoms.phi.alpha, geoms.phi.beta_x, geoms.phi.beta_y], dim=-1)
+    return canonical_inputs(batch.xy, batch.valid, geoms.H, phi, quantized=quantized,
+                            frame_valid=batch.frame_valid)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("camera", ["davis240", "davis346"])
+def test_the_wrapper_on_cpu_is_the_eager_chain(camera, quantized):
+    """`canonical_project` on CPU tensors takes the plain version: bitwise
+    the eager chain on xy0, valid and phi, with padded frames and parked
+    events, and no launch counted."""
+    cam = CAMERAS[camera]
+    batch = _batch(11, 3, 5, 48, cam)
+    assert not bool(batch.frame_valid.all())
+    planes = DSIConfig.for_camera(cam, num_planes=16, z_min=0.6, z_max=4.5).planes(
+        device="cpu")
+    before = dict(cuda.launch_counts)
+    got = canonical_project(cam, batch, planes, planes[8], quantized=quantized)
+    assert dict(cuda.launch_counts) == before
+    want = _eager_chain(cam, batch, planes, planes[8], quantized)
+    for name, a, b in zip(("xy0", "valid", "phi"), got, want):
+        assert a.device.type == "cpu" and a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(_bits(a), _bits(b)), name
+    assert bool(got[1].any()) and not bool(got[1].all())
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -203,7 +232,7 @@ def test_cpu_sweep_keeps_the_eager_front_end(camera, quantized, voting):
         quantized=quantized, frame_valid=batch.frame_valid)
     if quantized:
         want = tp.dsi_lib.from_storage(want)
-    want_dm = tp.detect_and_filter_from(conf, zf, planes)
+    want_dm = detection.detect_and_filter_from(conf, zf, planes)
     assert dsi.dtype == want.dtype and torch.equal(dsi, want)
     assert int((dsi != 0).sum()) > 0
     assert torch.equal(dm.depth.view(torch.int32), want_dm.depth.view(torch.int32))

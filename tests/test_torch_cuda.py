@@ -61,6 +61,8 @@ from repro_torch.kernels.backproject_vote.kernel import (
     smem_bytes,
 )
 from repro_torch.kernels.canonical_project.ops import canonical_project
+from repro_torch.kernels.canonical_project.ref import canonical_project_ref
+from repro_torch.kernels.detect_filter import ops as D
 from repro_torch.kernels.detect_filter.kernel import detect_filter_cuda
 from repro_torch.kernels.flash_attention.kernel import route
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -304,6 +306,7 @@ def _tail_inputs(seed: int, s: int, h: int, w: int, nz: int = 16):
 
 
 def _tail(conf, zf, planes, radius, median_filter, **kw):
+    """The CPU's plain tail, from `core.detection`."""
     if radius == detection.ADAPTIVE_RADIUS:
         return detection.detect_and_filter_from(conf, zf, planes,
                                                 median_filter=median_filter, **kw)
@@ -323,12 +326,13 @@ def _assert_same_depth_map(got, want):
 @pytest.mark.parametrize("S", [1, 2, 3])
 @pytest.mark.parametrize("H,W", [(180, 240), (260, 346), (5, 7), (1, 1), (2, 3), (4, 6)])
 def test_cuda_detect_filter_matches_cpu(dev, H, W, S, median_filter, radius):
-    """The detection tail, one launch, bitwise the CPU path on depth, mask
-    and confidence: both sensors, a small plane, one pixel, planes smaller
-    than the halo; radius 2 through `detect_structure_from`."""
+    """The detection tail's wrapper, one launch, bitwise the CPU path on
+    depth, mask and confidence: both sensors, a small plane, one pixel,
+    planes smaller than the halo, the default radius and radius 2."""
     conf, zf, planes = _tail_inputs(H * 1000 + W * 10 + S, S, H, W)
     n0 = cuda.launch_counts["detect_filter"]
-    got = _tail(conf.to(dev), zf.to(dev), planes.to(dev), radius, median_filter)
+    got = D.detect_filter(conf.to(dev), zf.to(dev), planes.to(dev), median_filter=median_filter,
+                          adaptive_radius=radius)
     torch.cuda.synchronize()
     assert cuda.launch_counts["detect_filter"] == n0 + 1
     _assert_same_depth_map(got, _tail(conf, zf, planes, radius, median_filter))
@@ -352,7 +356,7 @@ def test_cuda_detect_filter_on_a_sweep(dev, median_filter, threshold_c, min_vote
     conf, zf = depth_argmax(torch.stack([seg.dsi for seg in res.segments]))
     planes = cfg.planes(device=dev)
     kw = dict(threshold_c=threshold_c, min_votes=min_votes, median_filter=median_filter)
-    got = detection.detect_and_filter_from(conf, zf, planes, **kw)
+    got = D.detect_filter(conf, zf, planes, **kw)
     want = detection.detect_and_filter_from(conf.cpu(), zf.cpu(), planes.cpu(), **kw)
     assert conf.shape[0] >= 2 and int(want.mask.sum()) > 100
     _assert_same_depth_map(got, want)
@@ -361,10 +365,10 @@ def test_cuda_detect_filter_on_a_sweep(dev, median_filter, threshold_c, min_vote
 @pytest.mark.gpu
 def test_cuda_detect_filter_refuses(dev):
     conf, zf, planes = (t.to(dev) for t in _tail_inputs(3, 1, 8, 8))
-    taps = detection._gaussian_taps(2.5, 5)
+    taps = D._gaussian_taps(2.5, 5)
     kw = dict(threshold_c=6.0, min_votes=3.0, median_filter=True)
     with pytest.raises(ValueError, match="radius must be at most 8"):
-        detection.detect_structure_from(conf, zf, planes, adaptive_radius=9)
+        D.detect_filter(conf, zf, planes, adaptive_radius=9)
     with pytest.raises(TypeError, match="float32"):
         detect_filter_cuda(conf.double(), zf, planes, taps, **kw)
     with pytest.raises(TypeError, match="float32"):
@@ -408,15 +412,16 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("camera", ["davis240", "davis346"])
 def test_cuda_canonical_project_matches_cpu(dev, camera, quantized, S, C):
-    """The front end, one launch, bitwise the CPU's eager front end
-    (`precompute_batch_geometry`, then `canonical_inputs`) on xy0, valid and
-    phi: both sensors, Table 1 and float32, padded frames, parked events."""
+    """The front end, one launch, bitwise its plain version on the CPU
+    (`canonical_project_ref`: the frame geometry, then `canonical_inputs`) on
+    xy0, valid and phi: both sensors, Table 1 and float32, padded frames,
+    parked events."""
     cam = CAMERAS[camera]
     e = 1024 if C > 1 else 37
     batch = _front_batch(1000 * S + C + (7 if quantized else 0), S, C, e, cam)
     planes = DSIConfig.for_camera(cam, num_planes=128, z_min=0.6, z_max=4.5).planes(
         device="cpu")
-    want = tp.canonical_inputs_eager(cam, batch, planes, planes[64], quantized=quantized)
+    want = canonical_project_ref(cam, batch, planes, planes[64], quantized=quantized)
     planes_d = planes.to(dev)
     n0 = cuda.launch_counts["canonical_project"]
     got = canonical_project(cam, SegmentBatch(*(x.to(dev) for x in batch)), planes_d,
@@ -453,7 +458,7 @@ def test_cuda_run_emvs_front_end_matches_eager(dev, monkeypatch, camera, quantiz
 
     def eager(cam_, batch, planes, z0, *, quantized):
         cpu = SegmentBatch(*(x.cpu() for x in batch))
-        out = tp.canonical_inputs_eager(cam_, cpu, planes.cpu(), z0.cpu(), quantized=quantized)
+        out = canonical_project_ref(cam_, cpu, planes.cpu(), z0.cpu(), quantized=quantized)
         return tuple(x.to(dev) for x in out)
 
     monkeypatch.setattr(tp, "canonical_project", eager)

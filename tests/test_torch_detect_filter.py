@@ -8,7 +8,8 @@ coordinates, the vertical then the horizontal pass in ascending tap order
 image taken from the wrapped pixel and blurred from the whole plane, and the
 median by the kernel's own sorting network. The tile size and the network
 are read from the CUDA source. The emulation is held bitwise to the CPU
-path (`core.detection`) on depth, mask and confidence; on the card
+path (`core.detection`, which the wrapper `detect_filter` takes for CPU
+tensors) on depth, mask and confidence; on the card
 `tests/test_torch_cuda.py` holds the kernel to the same CPU path.
 """
 from __future__ import annotations
@@ -28,6 +29,8 @@ from repro_torch.core.dsi import DSIConfig
 from repro_torch.core.pipeline import EMVSOptions, SegmentBatch, run_emvs, sweep_segment_batch
 from repro_torch.events import aggregation as t_agg
 from repro_torch.events import simulator as t_sim
+from repro_torch.kernels import cuda
+from repro_torch.kernels.detect_filter import ops as D
 from repro_torch.kernels.local_max.ref import depth_argmax_ref
 from repro_torch.launch import graph_analysis as ga
 
@@ -135,7 +138,7 @@ def _cpu_tail(conf, zf, planes, *, radius, median_filter, threshold_c, min_votes
 def _check(conf, zf, planes, *, radius, median_filter, threshold_c=6.0, min_votes=3.0):
     kw = dict(threshold_c=threshold_c, min_votes=min_votes)
     want = _cpu_tail(conf, zf, planes, radius=radius, median_filter=median_filter, **kw)
-    taps = det._gaussian_taps(det.ADAPTIVE_SIGMA, radius)
+    taps = D._gaussian_taps(det.ADAPTIVE_SIGMA, radius)
     depth, mask, (mean, ys, xs) = emulate(conf, zf, planes, taps,
                                           median_filter=median_filter, **kw)
     blur = det.gaussian_blur(conf, det.ADAPTIVE_SIGMA, radius)
@@ -177,6 +180,27 @@ def test_emulation_matches_cpu_path_random(h, w, s, median_filter, radius):
     want = _check(conf, zf, planes, radius=radius, median_filter=median_filter)
     if h * w > 100:
         assert 0 < int(want.mask.sum()) < want.mask.numel()
+
+
+@pytest.mark.parametrize("radius", [5, 2])
+@pytest.mark.parametrize("median_filter", [True, False])
+@pytest.mark.parametrize("h,w", [(180, 240), (5, 7)])
+def test_the_wrapper_on_cpu_is_the_plain_tail(h, w, median_filter, radius):
+    """`detect_filter` on CPU tensors takes `core.detection`'s plain tail:
+    bitwise on depth, mask and confidence, with a leading batch, and no
+    launch counted."""
+    conf, zf, planes = _random_inputs(h * 7 + w + radius, 2, h, w)
+    kw = dict(threshold_c=6.0, min_votes=3.0)
+    before = dict(cuda.launch_counts)
+    got = D.detect_filter(conf, zf, planes, median_filter=median_filter,
+                          adaptive_radius=radius, **kw)
+    assert dict(cuda.launch_counts) == before
+    want = _cpu_tail(conf, zf, planes, radius=radius, median_filter=median_filter, **kw)
+    assert isinstance(got, det.DepthMap)
+    assert torch.equal(got.mask, want.mask)
+    assert torch.equal(got.depth.view(torch.int32), want.depth.view(torch.int32))
+    assert torch.equal(got.confidence, want.confidence)
+    assert 0 < int(got.mask.sum()) < got.mask.numel()
 
 
 @pytest.fixture(scope="module")
