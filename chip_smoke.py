@@ -27,7 +27,9 @@ Phases, each asserting, none caught:
      `aggregate` at 1024 events per frame, `run_emvs` on the 240x180
      DAVIS240 camera with 128 planes and the fused-kernel formulation
      (nearest, Table-1 quantized). Launch counts are zeroed just before
-     and read just after; both kernels must have launched. The same run
+     and read just after; both kernels must have launched, and the
+     aggregation pose kernel (frame_poses) once, for the one `aggregate`
+     to the card. The same run
      with the plain scatter formulation must agree bitwise on dsi, depth
      and mask, and AbsRel against the ground truth must stay below 0.25;
   5. times each EMVS kernel at the main path's largest bucket and at its
@@ -39,7 +41,11 @@ Phases, each asserting, none caught:
      time, busy share, top ops); the front-end kernel (canonical_project)
      at that bucket, bitwise the CPU's eager front end, its device and
      host-inclusive times beside its bytes bound and the eager chain's
-     launches and times on the card;
+     launches and times on the card; the aggregation pose kernel
+     (frame_poses) on phase 4's trajectory and mid-times, bitwise the card's
+     eager `pose_at_times` and the poses `aggregate` gave, timed the same
+     way, and one `aggregate` to the card, one launch of it and nothing
+     else counted, host-inclusive;
   4b. drives the same scene, trajectory and options through a DAVIS346
      (346x260, MVSEC intrinsics; B1 in two row bands): launch counts
      zeroed before and read after each run, kernel == scatter bitwise on
@@ -3080,6 +3086,78 @@ def tooling_phase(card: str, cam, dsi_cfg, opts, frames) -> dict:
     return out
 
 
+def frame_poses_timings(card: str, cam, events, traj, frames) -> dict:
+    """The aggregation pose kernel at the main path's shapes (phase 4's
+    trajectory and its frames' mid-times): one launch, bitwise the card's
+    eager `pose_at_times` and the poses phase 4's `aggregate` gave; its
+    device time (a CUDA graph of GRAPH_CALLS calls) and host-inclusive eager
+    time beside its bytes bound and the eager chain it replaces on the card
+    (its launches under the profiler and its times); then one `aggregate`
+    of phase 4's events to the card, counts zeroed just before: one
+    frame_poses launch and no other counted launch, its frames bitwise
+    phase 4's, and its host-inclusive time."""
+    import torch
+
+    from repro_torch.events.aggregation import aggregate
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.frame_poses.ops import frame_poses
+    from repro_torch.kernels.frame_poses.ref import frame_poses_ref
+    from repro_torch.launch.roofline import bound_ms, frame_poses_bytes
+
+    dev = frames.t_mid.device
+    times, R, t = (x.to(dev).contiguous() for x in (traj.times, traj.poses.R, traj.poses.t))
+    tq = frames.t_mid
+    n, f = times.shape[0], tq.shape[0]
+    shape_note = f"N={n} samples F={f} frames"
+
+    def kernel():
+        return frame_poses(times, R, t, tq)
+
+    def eager():
+        return frame_poses_ref(times, R, t, tq)
+
+    def agg():
+        return aggregate(cam, events, traj, events_per_frame=1024)
+
+    n0 = cuda.launch_counts["frame_poses"]
+    got = kernel()
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["frame_poses"] == n0 + 1, shape_note
+    for name, a, b, c in zip(("R", "t"), got, eager(), frames.poses):
+        assert_equal(a.view(torch.int32), b.view(torch.int32),
+                     f"frame_poses {name} at {shape_note} vs the card's eager pose_at_times")
+        assert_equal(c.view(torch.int32), b.view(torch.int32),
+                     f"aggregate's {name} at {shape_note} vs the card's eager pose_at_times")
+    torch.cuda.synchronize()
+    cuda.launch_counts.clear()
+    again = agg()
+    torch.cuda.synchronize()
+    agg_launches = dict(cuda.launch_counts)
+    assert agg_launches == {"frame_poses": 1}, agg_launches
+    for name, a, b in zip(("xy", "valid", "t_mid", "R", "t"),
+                          (again.xy, again.valid, again.t_mid, *again.poses),
+                          (frames.xy, frames.valid, frames.t_mid, *frames.poses)):
+        assert_equal(a, b, f"a second aggregate's {name}")
+    row = {"shape": shape_note, "device_ms": graph_ms(kernel),
+           "ms": cuda_ms(kernel, reps=7, inner=5), "plain_device_ms": graph_ms(eager),
+           "plain_ms": cuda_ms(eager, reps=7, inner=5),
+           "aggregate_ms": cuda_ms(agg, reps=7, inner=3),
+           "aggregate_launches": agg_launches["frame_poses"],
+           "events": int(events.t.shape[0]), "events_device": events.t.device.type}
+    # bytes bound: a few hundred operations a frame are far below the float32 rate
+    row["bound_ms"], row["bound_by"] = bound_ms(frame_poses_bytes(n, f), 0.0)
+    row["plain_launches"] = sum(log_breakdown(card, f"eager pose_at_times at {shape_note}",
+                                              eager, top=5).values())
+    log(f"[{card}] frame_poses at {shape_note}: bitwise the card's eager pose_at_times and "
+        f"aggregate's poses; device {row['device_ms']:.4f} ms (CUDA graph of {GRAPH_CALLS}), "
+        f"host-inclusive eager {row['ms']:.4f} ms; bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}); the eager chain on the card: {row['plain_launches']} launches, "
+        f"device {row['plain_device_ms']:.4f} ms, host-inclusive {row['plain_ms']:.4f} ms; "
+        f"aggregate of {row['events']} events (on the {row['events_device']}) to the card: "
+        f"{agg_launches}, host-inclusive {row['aggregate_ms']:.4f} ms")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3152,6 +3230,7 @@ def main() -> int:
     assert len(result.segments) >= 2, f"expected >= 2 segments, got {len(result.segments)}"
     for name in ("canonical_project", "backproject_vote", "depth_argmax"):
         assert launches.get(name, 0) > 0, f"the main path never launched {name}"
+    assert launches.get("frame_poses", 0) == 1, "one aggregate, one frame_poses launch"
 
     plain = run_emvs(cam, dsi_cfg, frames, dataclasses.replace(opts, formulation="scatter"))
     assert len(plain.segments) == len(result.segments)
@@ -3236,6 +3315,7 @@ def main() -> int:
             + (f"; plain {row['b2_plain_ms']:.4f} ms" if label == "main" else ""))
     main_row = timed["main"]
     front = front_end_timings(card, cam, dsi_cfg, frames, opts)
+    posed = frame_poses_timings(card, cam, events, traj, frames)
 
     walls = []
     for _ in range(3):
@@ -3347,6 +3427,15 @@ def main() -> int:
          "plain_device_ms": front["eager_device_ms"],
          "plain_launches": front["eager_launches"], "shape": front["shape"],
          "davis346": d346["front_end"]},
+        {"name": "frame_poses", "route": "cuda",
+         "source": "src/repro_torch/csrc/frame_poses.cu", "replaces": None,
+         "launches": launches["frame_poses"],
+         "launches_per_aggregate": posed["aggregate_launches"],
+         "ms": posed["ms"], "device_ms": posed["device_ms"], "bound_ms": posed["bound_ms"],
+         "bound_by": posed["bound_by"], "plain_ms": posed["plain_ms"],
+         "plain_device_ms": posed["plain_device_ms"],
+         "plain_launches": posed["plain_launches"], "aggregate_ms": posed["aggregate_ms"],
+         "shape": posed["shape"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:101",

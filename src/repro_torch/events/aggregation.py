@@ -5,7 +5,10 @@ Counterpart of `repro.events.aggregation`: 1024 events per frame (paper
 `StreamingAggregator` carries the partial-frame remainder across pushes on
 the host, so any chunking of a stream gives the same frames; the offline
 `aggregate` is one push plus a flush. Emitted frames are tensors on the
-aggregator's device.
+aggregator's device. To a CUDA card (an undistorted camera), `aggregate`
+stages the whole sequence in one pinned buffer, sends it by one copy and
+poses every frame in one launch (`kernels/frame_poses`), bit for bit the
+aggregator's frames.
 
 Poses come from a fully-known `Trajectory` (the offline oracle) or from a
 `TrajectoryBuffer` fed the tracker's pose chunks. In that pose-gated mode a
@@ -16,6 +19,7 @@ chunks gives the same frames.
 """
 from __future__ import annotations
 
+import math
 from collections import deque
 from typing import NamedTuple
 
@@ -34,8 +38,8 @@ from repro_torch.events.trajectory_stream import (
     PoseStallError,
     TrajectoryBuffer,
     enforce_pose_span,
-    pose_at_times,
 )
+from repro_torch.kernels.frame_poses.ops import frame_poses
 
 Tensor = torch.Tensor
 
@@ -84,6 +88,15 @@ def concat_event_frames(parts: list[EventFrames]) -> EventFrames:
     )
 
 
+def _check_options(events_per_frame: int, pose_extrapolation: str) -> None:
+    if events_per_frame < 1:
+        raise ValueError(f"events_per_frame must be >= 1, got {events_per_frame}")
+    if pose_extrapolation not in POSE_EXTRAPOLATION_POLICIES:
+        raise ValueError(
+            f"unknown pose_extrapolation policy {pose_extrapolation!r}: "
+            f"expected one of {POSE_EXTRAPOLATION_POLICIES}")
+
+
 class _StalledFrame(NamedTuple):
     """A completed frame waiting for its bracketing pose samples."""
 
@@ -130,12 +143,7 @@ class StreamingAggregator:
                  pose_extrapolation: str = "warn",
                  max_stalled: int | None = None, device=None,
                  defer_rotations: bool = False):
-        if events_per_frame < 1:
-            raise ValueError(f"events_per_frame must be >= 1, got {events_per_frame}")
-        if pose_extrapolation not in POSE_EXTRAPOLATION_POLICIES:
-            raise ValueError(
-                f"unknown pose_extrapolation policy {pose_extrapolation!r}: "
-                f"expected one of {POSE_EXTRAPOLATION_POLICIES}")
+        _check_options(events_per_frame, pose_extrapolation)
         if max_stalled is not None and max_stalled < 1:
             raise ValueError(
                 f"max_stalled must be >= 1 (or None for unbounded), got "
@@ -315,7 +323,7 @@ class StreamingAggregator:
         elif traj is self.traj and self._poser is not None:
             poses = self._poser(t_mid)
         else:
-            poses = pose_at_times(traj, t_mid_d)
+            poses = frame_poses(traj.times, traj.poses.R, traj.poses.t, t_mid_d)
         return EventFrames(
             xy=torch.from_numpy(xy).to(self.device),
             valid=torch.from_numpy(valid).to(self.device),
@@ -371,6 +379,99 @@ class StreamingAggregator:
                             np.stack([f.valid for f in frames]), t_mid, traj)
 
 
+def _frame_mid_times(t: np.ndarray) -> np.ndarray:
+    """`np.median(t, axis=1)` for rows `t` (F, k) that are non-decreasing, bit
+    for bit: the middle timestamp, or the mean of the middle pair. A row with
+    a NaN, or a zero in its middle pair, takes `np.median` itself (its NaN,
+    its signed zero)."""
+    k = t.shape[1]
+    lo, hi = t[:, (k - 1) // 2], t[:, k // 2]
+    mid = lo.copy() if k % 2 else (lo + hi) * np.float32(0.5)
+    by_median = (lo == 0) | (hi == 0)
+    if np.isnan(t).any():
+        by_median |= np.isnan(t).any(axis=1)
+    if by_median.any():
+        mid[by_median] = np.median(t[by_median], axis=1)
+    return mid
+
+
+class _Field(NamedTuple):
+    """Where one array lies in a staging buffer of bytes."""
+
+    offset: int
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+
+def _stage(stream: EventStream, traj: Trajectory, events_per_frame: int, keep_tail: bool,
+           pose_extrapolation: str, *, pin_memory: bool
+           ) -> tuple[Tensor, dict[str, _Field]] | None:
+    """The frames of `aggregate`, less their poses, and the trajectory, in one
+    host buffer of bytes (pinned with `pin_memory`), with each field's place;
+    None when there is no frame. The push's and flush's checks, in their
+    order: monotone timestamps, then the out-of-span policy on the full
+    frames' mid-times, then on the tail's."""
+    e = events_per_frame
+    t = to_host(stream.t, np.float32)
+    check_chunk_monotone(t, float("-inf"), context="StreamingAggregator.push")
+    n_full = t.shape[0] // e
+    n_tail = t.shape[0] - n_full * e if keep_tail else 0
+    n_frames = n_full + (n_tail > 0)
+    if n_frames == 0:
+        return None
+    times = to_host(traj.times, np.float32)
+    t_mid = np.empty(n_frames, np.float32)
+    if n_full:
+        t_mid[:n_full] = _frame_mid_times(t[:n_full * e].reshape(n_full, e))
+        enforce_pose_span(times, t_mid[:n_full], pose_extrapolation,
+                          context="frame mid-times")
+    if n_tail:
+        t_mid[n_full:] = _frame_mid_times(t[n_full * e:][None])
+        enforce_pose_span(times, t_mid[n_full:], pose_extrapolation,
+                          context="frame mid-times")
+
+    n_s = times.shape[0]
+    shapes = {"xy": (n_frames, e, 2), "valid": (n_frames, e), "t_mid": (n_frames,),
+              "times": (n_s,), "R": (n_s, 3, 3), "t": (n_s, 3)}
+    fields, size = {}, 0
+    for name, shape in shapes.items():
+        f = _Field(size, shape, torch.bool if name == "valid" else torch.float32)
+        fields[name] = f
+        size += -(-f.nbytes // 16) * 16  # each field 16-byte aligned
+    buf = torch.empty(size, dtype=torch.uint8, pin_memory=pin_memory)
+    raw = buf.numpy()
+    host = {name: raw[f.offset:f.offset + f.nbytes]
+            .view(bool if f.dtype == torch.bool else np.float32).reshape(f.shape)
+            for name, f in fields.items()}
+    xy = to_host(stream.xy, np.float32)
+    valid = to_host(stream.valid, bool)
+    host["xy"][:n_full] = xy[:n_full * e].reshape(n_full, e, 2)
+    host["valid"][:n_full] = valid[:n_full * e].reshape(n_full, e)
+    if n_tail:
+        host["xy"][n_full, :n_tail] = xy[n_full * e:]
+        host["xy"][n_full, n_tail:] = PARKED_COORD
+        host["valid"][n_full, :n_tail] = valid[n_full * e:]
+        host["valid"][n_full, n_tail:] = False
+    host["t_mid"][:] = t_mid
+    host["times"][:] = times
+    host["R"][:] = to_host(traj.poses.R, np.float32)
+    host["t"][:] = to_host(traj.poses.t, np.float32)
+    return buf, fields
+
+
+def _unstage(buf: Tensor, fields: dict[str, _Field]) -> EventFrames:
+    """The staged fields as views of `buf`, on its device, and the frames'
+    poses from one `frame_poses` call."""
+    v = {name: buf[f.offset:f.offset + f.nbytes].view(f.dtype).view(f.shape)
+         for name, f in fields.items()}
+    return EventFrames(xy=v["xy"], valid=v["valid"], t_mid=v["t_mid"],
+                       poses=frame_poses(v["times"], v["R"], v["t"], v["t_mid"]))
+
+
 def aggregate(cam: CameraModel, stream: EventStream, traj: Trajectory,
               events_per_frame: int = EVENTS_PER_FRAME,
               keep_tail: bool = True, *,
@@ -378,8 +479,20 @@ def aggregate(cam: CameraModel, stream: EventStream, traj: Trajectory,
     """Slice the (sorted) stream into frames of `events_per_frame`.
 
     One push through `StreamingAggregator` plus, with `keep_tail`, a flush
-    of the trailing partial frame as a final padded frame.
+    of the trailing partial frame as a final padded frame. To a CUDA card,
+    for a camera without distortion, the same frames bit for bit reach the
+    card by one copy from pinned memory with the trajectory, posed there by
+    one `frame_poses` launch.
     """
+    dev = resolve_device(device)
+    if dev.type == "cuda" and not cam.has_distortion():
+        _check_options(events_per_frame, pose_extrapolation)
+        staged = _stage(stream, traj, int(events_per_frame), keep_tail, pose_extrapolation,
+                        pin_memory=True)
+        if staged is None:
+            return empty_event_frames(events_per_frame, dev)
+        buf, fields = staged
+        return _unstage(buf.to(dev, non_blocking=True), fields)
     agg = StreamingAggregator(cam, traj, events_per_frame,
                               pose_extrapolation=pose_extrapolation, device=device)
     full = agg.push(stream)

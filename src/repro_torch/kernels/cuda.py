@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 KERNEL_SOURCES = ("backproject_vote", "local_max", "flash_attention", "detect_filter",
-                  "canonical_project")
+                  "canonical_project", "frame_poses")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

@@ -89,6 +89,13 @@ def canonical_project_bytes(s: int, c: int, e: int, nz: int) -> int:
     return 18 * s * c * e + (49 + 12 * nz) * s * c + 48 * s + 4 * (nz + 1)
 
 
+def frame_poses_bytes(n: int, f: int) -> int:
+    """Bytes the frame-pose kernel must move: the trajectory's N samples
+    (time, R, t: 13 float32) read once, each of F mid-times read and its
+    pose (12 float32) written."""
+    return 52 * n + 52 * f
+
+
 def depth_argmax_bytes(s: int, nz: int, h: int, w: int, itemsize: int = 2) -> int:
     """Bytes B2 must move: the stored DSI read once, conf and zf written."""
     return itemsize * s * nz * h * w + 8 * s * h * w

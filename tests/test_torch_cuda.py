@@ -14,7 +14,11 @@ plane size and on a sweep at the offline cell's configuration; the front-end
 kernel (frame geometry, Table 1, the homography) is bitwise the CPU's eager
 front end on xy0, valid and phi, on both sensors, both datapaths and any
 bucket shape, and a whole `run_emvs` with it equals one fed the eager front
-end's outputs, one launch of it a bucket. Flash attention
+end's outputs, one launch of it a bucket. The frame-pose kernel is bitwise
+the card's eager `pose_at_times` (out-of-span queries, repeated sample times,
+identity and near-pi rotations, two samples), and `aggregate` on the card is
+bitwise the streaming aggregator's push and flush on the card, by one copy
+and one launch. Flash attention
 is held to its plain version within the reference's own tolerances
 (`tests/test_kernels.py`): 2e-5 in float32, 2e-2 in bfloat16 (the sums
 run in another order, the tensor-core route rounds the probabilities to
@@ -43,15 +47,23 @@ from repro_torch.core import detection
 from repro_torch.core import pipeline as tp
 from repro_torch.core.camera import CAMERAS, CameraModel
 from repro_torch.core.dsi import DSIConfig
-from repro_torch.core.geometry import so3_exp
+from repro_torch.core.geometry import SE3, so3_exp
 from repro_torch.core.pipeline import EMVSOptions, SegmentBatch, run_emvs
-from repro_torch.events.aggregation import PARKED_COORD, aggregate
+from repro_torch.events.aggregation import (
+    PARKED_COORD,
+    StreamingAggregator,
+    aggregate,
+    concat_event_frames,
+)
 from repro_torch.events.simulator import (
+    EventStream,
     SceneConfig,
+    Trajectory,
     make_scene,
     make_trajectory,
     simulate_events,
 )
+from repro_torch.events.trajectory_stream import TrajectoryBuffer, pose_at_times
 from repro_torch.kernels import cuda
 from repro_torch.kernels.backproject_vote import ops
 from repro_torch.kernels.backproject_vote.kernel import (
@@ -67,6 +79,7 @@ from repro_torch.kernels.detect_filter.kernel import detect_filter_cuda
 from repro_torch.kernels.flash_attention.kernel import route
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.frame_poses.ops import frame_poses
 from repro_torch.kernels.local_max.ops import depth_argmax
 from repro_torch.models import model as M
 from repro_torch.serving.emvs_stream import EMVSStreamEngine, StreamConfig, iter_event_chunks
@@ -489,6 +502,168 @@ def test_cuda_canonical_project_refuses(dev):
         canonical_project(cam, batch._replace(ref_t=batch.ref_t.cpu()), planes, planes[8],
                           quantized=True)
     assert cuda.launch_counts["canonical_project"] == n0
+
+
+def _pose_trajectory(kind: str, seed: int) -> Trajectory:
+    """A host trajectory: random rotations ("random"), with some sample times
+    repeated ("repeated"), every other interval without rotation
+    ("identity"), intervals turning by pi less 1e-2 to 0 ("near_pi"), or two
+    samples ("two")."""
+    rng = np.random.default_rng(seed)
+    n = 2 if kind == "two" else 64
+    times = np.sort(rng.uniform(0.0, 1.0, n)).astype(np.float32)
+    if kind == "repeated":
+        times[1::3] = times[0::3][:len(times[1::3])]
+        times = np.sort(times)
+    R = so3_exp(torch.from_numpy(rng.normal(0.0, 1.0, (n, 3)).astype(np.float32)))
+    if kind == "identity":
+        R[1::2] = R[0::2][:len(R[1::2])]
+    if kind == "near_pi":
+        axes = rng.normal(0.0, 1.0, (n, 3))
+        axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+        turn = np.pi - np.array([1e-2, 1e-4, 1e-6, 0.0])[np.arange(n) % 4]
+        steps = so3_exp(torch.from_numpy((axes * turn[:, None]).astype(np.float32)))
+        for k in range(1, n):
+            R[k] = steps[k] @ R[k - 1]
+    t = torch.from_numpy(rng.normal(0.0, 1.0, (n, 3)).astype(np.float32))
+    return Trajectory(torch.from_numpy(times), SE3(R.contiguous(), t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "repeated", "identity", "near_pi", "two"])
+def test_cuda_frame_poses_matches_eager(dev, kind):
+    """The frame-pose kernel, one launch, bitwise the eager `pose_at_times`
+    on the card: queries before, inside and past the span, at the sample
+    times and between them."""
+    traj = _pose_trajectory(kind, len(kind))
+    rng = np.random.default_rng(9)
+    mids = (traj.times[1:] + traj.times[:-1]) * 0.5
+    tq = torch.cat([torch.from_numpy(rng.uniform(-0.2, 1.2, 4000).astype(np.float32)),
+                    traj.times, mids]).to(dev)
+    td = Trajectory(traj.times.to(dev), SE3(traj.poses.R.to(dev), traj.poses.t.to(dev)))
+    want = pose_at_times(td, tq)
+    n0 = cuda.launch_counts["frame_poses"]
+    got = frame_poses(td.times, td.poses.R, td.poses.t, tq)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["frame_poses"] == n0 + 1
+    for name, a, b in zip(("R", "t"), got, want):
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape, name
+        bad = int((_bits(a) != _bits(b)).sum())
+        assert bad == 0, f"{kind}: {name} differs in {bad} of {a.numel()} values"
+
+
+@pytest.fixture(scope="module")
+def _agg_scene():
+    cam = CameraModel()
+    traj = make_trajectory("simulation_3planes", 24, device="cpu")
+    events = simulate_events(cam, make_scene(SceneConfig()), traj, device="cpu")
+    return cam, traj, events
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keep_tail", [True, False])
+@pytest.mark.parametrize("cut", ["below_e", "multiple", "partial"])
+@pytest.mark.parametrize("where", ["host", "card"])
+def test_cuda_aggregate_matches_streaming_aggregator(dev, _agg_scene, where, cut, keep_tail):
+    """`aggregate` on the card is bitwise, in all five fields, the streaming
+    aggregator's push and flush on the card, and its poses bitwise the eager
+    `pose_at_times` on the card: a stream on the host or on the card; fewer
+    events than a frame, a multiple of the frame size, a partial tail; one
+    `frame_poses` launch when there are frames."""
+    cam, traj, events = _agg_scene
+    e = 1024
+    n = {"below_e": 700, "multiple": 20 * e, "partial": 20 * e + 333}[cut]
+    assert events.t.shape[0] >= n
+    part = EventStream(*(a[:n] for a in events))
+    if where == "card":
+        part = EventStream(*(a.to(dev) for a in part))
+    agg = StreamingAggregator(cam, traj, e, pose_extrapolation="clamp", device=dev)
+    want = concat_event_frames([agg.push(part)] + ([agg.flush()] if keep_tail else []))
+    n0 = cuda.launch_counts["frame_poses"]
+    got = aggregate(cam, part, traj, e, keep_tail, pose_extrapolation="clamp", device=dev)
+    torch.cuda.synchronize()
+    f = n // e + (keep_tail and n % e > 0)
+    assert cuda.launch_counts["frame_poses"] == n0 + (f > 0)
+    fields = ("xy", "valid", "t_mid", "R", "t")
+    for name, a, b in zip(fields, (got.xy, got.valid, got.t_mid, *got.poses),
+                          (want.xy, want.valid, want.t_mid, *want.poses)):
+        assert a.is_cuda and a.dtype == b.dtype and a.shape[0] == f, name
+        assert a.shape == b.shape and torch.equal(_bits(a), _bits(b)), name
+    td = Trajectory(traj.times.to(dev), SE3(traj.poses.R.to(dev), traj.poses.t.to(dev)))
+    for name, a, b in zip(("R", "t"), got.poses, pose_at_times(td, got.t_mid)):
+        assert torch.equal(_bits(a), _bits(b)), f"{name} against the eager chain"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source", ["distorted", "gated"])
+def test_cuda_streaming_aggregator_poses_by_the_kernel(dev, _agg_scene, source):
+    """The streaming aggregator on the card poses by `frame_poses`, one launch
+    a pose call (a push that completes frames, a flush with a tail), bitwise
+    the eager `pose_at_times` on the card: `aggregate` with a distorted camera
+    (which keeps the aggregator's path), and a pose-gated aggregator fed a
+    `TrajectoryBuffer` chunk by chunk (each release posed from a slice of the
+    buffer)."""
+    cam, traj, events = _agg_scene
+    e = 1024
+    part = EventStream(*(a[:20 * e + 333].to(dev) for a in events))
+    td = Trajectory(traj.times.to(dev), SE3(traj.poses.R.to(dev), traj.poses.t.to(dev)))
+    n0 = cuda.launch_counts["frame_poses"]
+    if source == "distorted":
+        dcam = dataclasses.replace(cam, k1=-0.08, k2=0.01, p1=1e-3, p2=-5e-4)
+        got = aggregate(dcam, part, traj, e, pose_extrapolation="clamp", device=dev)
+        calls = 2  # the push's 20 full frames, the flush's tail
+    else:
+        agg = StreamingAggregator(cam, TrajectoryBuffer(), e, pose_extrapolation="clamp",
+                                  device=dev)
+        parts = []
+        n_s, n_ev = traj.times.shape[0], part.t.shape[0]
+        for k in range(0, n_s, 5):
+            parts.append(agg.push_poses(Trajectory(
+                traj.times[k:k + 5], SE3(traj.poses.R[k:k + 5], traj.poses.t[k:k + 5]))))
+            parts.append(agg.push(EventStream(*(a[k * n_ev // n_s:(k + 5) * n_ev // n_s]
+                                                for a in part))))
+        parts += [agg.finalize_poses(), agg.flush()]
+        calls = sum(p.t_mid.shape[0] > 0 for p in parts)
+        got = concat_event_frames(parts)
+    torch.cuda.synchronize()
+    assert got.t_mid.shape[0] == 21 and got.poses.R.is_cuda
+    assert cuda.launch_counts["frame_poses"] == n0 + calls
+    for name, a, b in zip(("R", "t"), got.poses, pose_at_times(td, got.t_mid)):
+        assert torch.equal(_bits(a), _bits(b)), f"{source}: {name} against the eager chain"
+
+
+class _CudaOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records every dispatched operation, views left out, that gives a CUDA
+    tensor."""
+
+    def __init__(self):
+        super().__init__()
+        self.names: list[str] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        flat = torch.utils._pytree.tree_leaves(out)
+        if not func.is_view and any(isinstance(x, torch.Tensor) and x.is_cuda for x in flat):
+            self.names.append(str(func))
+        return out
+
+
+@pytest.mark.gpu
+def test_cuda_aggregate_is_one_copy_and_one_launch(dev, _agg_scene):
+    """A host stream reaches the card by one copy from pinned memory and is
+    posed by one `frame_poses` launch: no other device operation, no host
+    sync."""
+    cam, traj, events = _agg_scene
+    aggregate(cam, events, traj, 1024, pose_extrapolation="clamp", device=dev)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with _CudaOps() as ops:
+            frames = aggregate(cam, events, traj, 1024, pose_extrapolation="clamp", device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.names == ["aten._to_copy.default", "repro_torch.frame_poses.default"]
+    assert frames.xy.is_cuda and frames.poses.R.is_cuda
 
 
 @pytest.mark.gpu
